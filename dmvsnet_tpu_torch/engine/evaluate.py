@@ -1,0 +1,167 @@
+"""Depth-map inference runner (port of dmvsnet_tpu.engine.evaluate.run_test).
+
+Per scene: the T&T resolution override, a fresh eval dataset, the infer
+step per batch of reference views (the tail batch padded by repetition),
+and the reference-compatible outputs depth_est/*.pfm, confidence/*.pfm,
+cams/*_cam.txt, images/*.jpg.  Point-cloud fusion (pcd / dypcd) is not
+ported yet; ``filter_method`` must be "none".
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+import time
+
+import cv2
+import numpy as np
+import torch
+
+from dmvsnet_tpu_torch import pin_fp32, resolve_device
+from dmvsnet_tpu_torch.config import Config
+from dmvsnet_tpu_torch.convert import load_reference_state_dict
+from dmvsnet_tpu_torch.data import io
+from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
+from dmvsnet_tpu_torch.data.splits import resolve_scan_list
+from dmvsnet_tpu_torch.engine.steps import make_infer_step
+from dmvsnet_tpu_torch.fusion.tank_config import TANK_SCENE_CONFIG
+from dmvsnet_tpu_torch.models import MVSNet
+from dmvsnet_tpu_torch.models.blocks import init_weights
+
+
+def build_model(cfg: Config, device: torch.device) -> MVSNet:
+    """The eval MVSNet of ``cfg`` on ``device``: weights from ``cfg.resume``
+    (a reference-layout torch state dict), else a seeded random init from
+    ``cfg.seed``."""
+    if cfg.fea_mode != "fpn":
+        raise NotImplementedError(f"fea_mode={cfg.fea_mode!r}: only 'fpn' is implemented")
+    if cfg.agg_mode != "variance":
+        raise NotImplementedError(
+            f"agg_mode={cfg.agg_mode!r}: adaptive aggregation is not ported yet "
+            "(ROADMAP.md, open items §1: adaptive aggregation)")
+    for name in ("compute_dtype", "costreg_dtype", "feature_dtype"):
+        if getattr(cfg, name) not in ("auto", "float32"):
+            raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: the port runs fp32 only")
+    impl = cfg.warp_impl
+    if impl == "auto":
+        impl = "cuda" if device.type == "cuda" else "torch"
+    elif impl == "epipolar":
+        raise NotImplementedError(
+            "warp_impl='epipolar' is not ported yet (ROADMAP.md, open items §1: "
+            "kernels 4+5 with epipolar routing)")
+    elif impl == "cuda" and device.type != "cuda":
+        raise ValueError("warp_impl='cuda' needs a CUDA device")
+    elif impl not in ("cuda", "torch"):
+        raise ValueError(f"warp_impl must be auto, cuda or torch, got {impl!r}")
+
+    # build without allocating, then fill every tensor from one seeded
+    # CPU generator: the same seed gives the same weights on every device
+    with torch.device("meta"):
+        model = MVSNet(ndepths=tuple(cfg.ndepths),
+                       depth_interval_ratio=tuple(cfg.interval_ratio),
+                       inverse_depth=cfg.inverse_depth, warp_impl=impl)
+    model = model.to_empty(device="cpu")
+    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    if cfg.resume:
+        payload = torch.load(cfg.resume, map_location="cpu", weights_only=True)
+        load_reference_state_dict(model, payload.get("model", payload))
+    return model.to(device).eval()
+
+
+def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
+    """Depth inference over ``cfg``'s scans; runs on CUDA unless
+    ``device="cpu"``.
+
+    Returns {"maps": depth maps written, "dispatch_seconds": wall seconds
+    of each infer dispatch (host copy of the result included),
+    "device": the device}.
+    """
+    device = resolve_device(device)
+    if cfg.filter_method in ("pcd", "dypcd"):
+        raise NotImplementedError(
+            f"filter_method={cfg.filter_method!r}: point-cloud fusion is not "
+            "ported yet (ROADMAP.md, open items §1: pcd/dypcd fusion); use 'none'")
+    if cfg.filter_method not in ("none", ""):
+        raise NotImplementedError(f"filter_method={cfg.filter_method!r}")
+    # cuDNN defaults fp32 convolutions to TF32; the port is held to the
+    # fp32 reference, so TF32 is off for convolutions and matmuls
+    pin_fp32()
+
+    if cfg.testpath_single_scene:
+        # single-scene mode: datapath = parent dir, scan = basename
+        cfg = cfg.replace(datapath=os.path.dirname(cfg.testpath_single_scene))
+        scans = [os.path.basename(cfg.testpath_single_scene)]
+    else:
+        scans = resolve_scan_list(cfg.testlist, cfg.datapath)
+    model = build_model(cfg, device)
+    infer = make_infer_step()
+    maps, dispatch_seconds = 0, []
+
+    # fix_res latch carried across the per-scene datasets
+    latched_hw = None
+    for scene in scans:
+        max_h, max_w = cfg.max_h, cfg.max_w
+        if scene in TANK_SCENE_CONFIG:
+            sc = TANK_SCENE_CONFIG[scene]
+            max_h, max_w = sc.max_h, sc.max_w
+
+        ds = GeneralEvalDataset(
+            cfg.datapath, [scene], nviews=cfg.num_view, ndepths=cfg.numdepth,
+            interval_scale=cfg.interval_scale, max_h=max_h, max_w=max_w,
+            fix_res=cfg.fix_res, inverse_depth=cfg.inverse_depth,
+            fixed_hw=latched_hw,
+        )
+        eb = max(1, int(cfg.eval_batch))
+
+        def load_batch(start):
+            samples = [ds[i] for i in range(start, min(start + eb, len(ds)))]
+            nreal = len(samples)
+            # pad the tail batch by repetition: one shape per scene,
+            # padded outputs discarded below
+            samples = samples + [samples[-1]] * (eb - nreal)
+            imgs = np.stack([s["imgs"] for s in samples])
+            proj = {k: np.stack([s["proj_matrices"][k] for s in samples])
+                    for k in samples[0]["proj_matrices"]}
+            dvb = np.stack([s["depth_values"] for s in samples])
+            return samples, nreal, imgs, proj, dvb
+
+        # one-batch-ahead prefetch: decode batch k+1 on a worker thread
+        # while the device runs batch k
+        starts = list(range(0, len(ds), eb))
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            futures = {starts[0]: pool.submit(load_batch, starts[0])} if starts else {}
+            for si, start in enumerate(starts):
+                samples, nreal, imgs_np, proj_np, dv_np = futures.pop(start).result()
+                if si + 1 < len(starts):
+                    futures[starts[si + 1]] = pool.submit(load_batch, starts[si + 1])
+                imgs = torch.from_numpy(imgs_np).to(device)
+                proj = {k: torch.from_numpy(v).to(device) for k, v in proj_np.items()}
+                dv = torch.from_numpy(dv_np).to(device)
+
+                t0 = time.perf_counter()
+                depth_b, conf_b = infer(model, imgs, proj, dv)
+                depth_b = depth_b.cpu().numpy()
+                conf_b = conf_b.cpu().numpy()
+                dt = time.perf_counter() - t0
+                dispatch_seconds.append(dt)
+                print(f"{scene} [{start}..{start + nreal - 1}/{len(ds)}] "
+                      f"{depth_b.shape[1:]} {dt:.3f}s", flush=True)
+
+                for j in range(nreal):
+                    sample, depth, conf = samples[j], depth_b[j], conf_b[j]
+                    fname = sample["filename"]
+                    io.save_pfm(os.path.join(cfg.outdir, fname.format("depth_est", ".pfm")),
+                                depth.astype(np.float32))
+                    io.save_pfm(os.path.join(cfg.outdir, fname.format("confidence", ".pfm")),
+                                conf.astype(np.float32))
+                    io.write_cam_file(os.path.join(cfg.outdir, fname.format("cams", "_cam.txt")),
+                                      sample["proj_matrices"]["stage3"][0])
+                    img_path = os.path.join(cfg.outdir, fname.format("images", ".jpg"))
+                    os.makedirs(os.path.dirname(img_path), exist_ok=True)
+                    cv2.imwrite(img_path, cv2.cvtColor(
+                        np.clip(sample["imgs"][0] * 255, 0, 255).astype(np.uint8),
+                        cv2.COLOR_RGB2BGR))
+                    maps += 1
+        if cfg.fix_res:
+            latched_hw = ds.latched_hw
+    return {"maps": maps, "dispatch_seconds": dispatch_seconds, "device": str(device)}

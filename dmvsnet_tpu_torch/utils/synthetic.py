@@ -1,0 +1,134 @@
+"""Synthetic DTU-like batches and scenes for tests / benchmarks / dry runs.
+
+Generates geometrically consistent multi-view inputs: a textured
+fronto-parallel plane (or a smooth height-field) at DTU-scale depths
+(425-935 mm) rendered into V translated pinhole cameras.  Used where the
+real datasets aren't on disk: unit tests and chip_smoke.py.  A copy of
+dmvsnet_tpu.utils.synthetic (the eval-scene and batch helpers).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def camera_stack(fx, fy, cx, cy, tx=0.0, ty=0.0, angle=0.0):
+    """A (2,4,4) [extrinsics; intrinsics] stack like the DTU cam.txt."""
+    intr = np.zeros((4, 4), np.float32)
+    intr[:3, :3] = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    c, s = np.cos(angle), np.sin(angle)
+    ext = np.eye(4, dtype=np.float32)
+    ext[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    ext[:3, 3] = [tx, ty, 0.0]
+    return np.stack([ext, intr])
+
+
+def render_plane_views(
+    height: int, width: int, n_views: int, depth: float = 600.0,
+    seed: int = 0, baseline: float = 12.0,
+):
+    """Render V views of a textured plane z=depth (ref camera frame).
+
+    Returns (imgs (V,H,W,3) float32 in [0,1], cams (V,2,4,4) at FULL
+    resolution intrinsics, gt_depth (H,W) for the ref view).
+    """
+    rng = np.random.default_rng(seed)
+    f = 1.2 * width
+    cams = np.stack(
+        [camera_stack(f, f, width / 2, height / 2, tx=-baseline * i) for i in range(n_views)]
+    )
+    # smooth random texture as a Fourier sum
+    coeffs = rng.normal(size=(3, 6, 3)).astype(np.float32)
+
+    def texture(X, Y):
+        img = np.zeros((*X.shape, 3), np.float32)
+        for c in range(3):
+            for i in range(6):
+                a, fx_, fy_ = coeffs[c, i]
+                img[..., c] += np.sin(0.07 * (fx_ * X + fy_ * Y) + a)
+        return (img - img.min()) / (img.max() - img.min() + 1e-6)
+
+    xs, ys = np.meshgrid(
+        np.arange(width, dtype=np.float32), np.arange(height, dtype=np.float32)
+    )
+    imgs = []
+    for v in range(n_views):
+        Kinv = np.linalg.inv(cams[v, 1, :3, :3])
+        R, t = cams[v, 0, :3, :3], cams[v, 0, :3, 3]
+        rays = np.einsum("ij,jhw->ihw", R.T @ Kinv, np.stack([xs, ys, np.ones_like(xs)]))
+        origin = -R.T @ t
+        s = (depth - origin[2]) / rays[2]
+        imgs.append(texture(origin[0] + s * rays[0], origin[1] + s * rays[1]))
+    gt = np.full((height, width), depth, np.float32)
+    return np.stack(imgs), cams, gt
+
+
+def stage_projections(cams_full: np.ndarray, num_stage: int = 3) -> dict:
+    """{"stage{i}": (V,2,4,4)} with intrinsics scaled 1/4, 1/2, 1 of full
+    (the DTU-train convention, reference datasets/dtu_yao.py:175-185,
+    where the base cams are at 1/4 resolution)."""
+    out = {}
+    for s in range(num_stage):
+        scale = 2.0 ** (s - (num_stage - 1))  # 1/4, 1/2, 1
+        p = cams_full.copy()
+        p[:, 1, :2, :] *= scale
+        out[f"stage{s + 1}"] = p
+    return out
+
+
+def write_eval_scene(
+    root: str, scan: str = "scan1", height: int = 128, width: int = 160,
+    n_views: int = 5, depth: float = 600.0, seed: int = 0,
+    baseline: float = 12.0,
+) -> None:
+    """Materialize a general_eval-format scene directory:
+    {scan}/images/*.jpg, {scan}/cams/*_cam.txt, {scan}/pair.txt
+    (the layout consumed by reference datasets/general_eval.py:138-142).
+
+    Cam files use FULL-resolution intrinsics x4 (the eval reader divides
+    by 4, reference general_eval.py:69)."""
+    import os
+
+    from PIL import Image
+
+    from dmvsnet_tpu_torch.data import io as data_io
+
+    imgs, cams, _ = render_plane_views(height, width, n_views, depth, seed,
+                                       baseline=baseline)
+    scan_dir = os.path.join(root, scan)
+    os.makedirs(os.path.join(scan_dir, "images"), exist_ok=True)
+    os.makedirs(os.path.join(scan_dir, "cams"), exist_ok=True)
+    pairs = []
+    for v in range(n_views):
+        Image.fromarray((imgs[v] * 255).astype(np.uint8)).save(
+            os.path.join(scan_dir, "images", f"{v:08d}.jpg"), quality=95
+        )
+        cam = cams[v].copy()  # eval cam files carry FULL-res intrinsics;
+        # the reader's /4 (general_eval.py:69) yields the stage-1 base
+        cam[1, 3, :] = [depth - 100.0, 1.5, 192.0, depth - 100.0 + 1.5 * 192]
+        data_io.write_cam_file(os.path.join(scan_dir, "cams", f"{v:08d}_cam.txt"), cam)
+        pairs.append((v, [s for s in range(n_views) if s != v]))
+    data_io.write_pair_file(os.path.join(scan_dir, "pair.txt"), pairs)
+
+
+def make_batch(
+    batch: int = 1, n_views: int = 5, height: int = 64, width: int = 96,
+    n_depths: int = 48, depth: float = 600.0, seed: int = 0,
+) -> dict:
+    """A full training batch: imgs/proj pyramid/depth_values/gt/mask."""
+    imgs, cams, gt = render_plane_views(height, width, n_views, depth, seed)
+    proj = {k: np.broadcast_to(v, (batch, *v.shape)).copy()
+            for k, v in stage_projections(cams).items()}
+    depth_values = np.linspace(425.0, 935.0, n_depths, dtype=np.float32)
+    gt_ms, mask_ms = {}, {}
+    for s, scale in [(1, 4), (2, 2), (3, 1)]:
+        g = gt[::scale, ::scale]
+        gt_ms[f"stage{s}"] = np.broadcast_to(g, (batch, *g.shape)).copy()
+        mask_ms[f"stage{s}"] = np.ones((batch, *g.shape), np.float32)
+    return {
+        "imgs": np.broadcast_to(imgs, (batch, *imgs.shape)).copy(),
+        "proj_matrices": proj,
+        "depth_values": np.broadcast_to(depth_values, (batch, n_depths)).copy(),
+        "depth": gt_ms,
+        "mask": mask_ms,
+    }
