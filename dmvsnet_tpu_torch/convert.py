@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's parameter trees -> the port's state dict.
+"""Weight bridge between the JAX package's parameter trees and the port's
+state dict, in both directions.
 
 ``state_dict_from_jax(params, batch_stats)`` takes the nested numpy dicts
 of a JAX ``MVSNet`` and returns a state dict in the reference's naming
@@ -14,6 +15,12 @@ port's own module layout.  Kernel layouts:
 
 ``num_batches_tracked`` has no JAX counterpart and is left out; PyTorch's
 batch norm fills it in on load, so the dict loads with ``strict=True``.
+
+``jax_tree_from_state_dict(state_dict)`` is the inverse (numpy in, numpy
+out): a checkpoint trained by the port becomes ``(params, batch_stats)``
+for the JAX package.  Every layout change is a permutation, so applying
+``state_dict_from_jax`` to a JAX *gradient* tree gives the gradients in the
+port's naming.
 """
 
 from __future__ import annotations
@@ -79,6 +86,54 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tens
         key = f"{_module_path(path[:-1])}.{_LEAF[leaf]}"
         sd[key] = torch.from_numpy(np.array(w, dtype=np.float32))
     return sd
+
+
+_FEATURE_SEQ_INV = {v: k for k, v in _FEATURE_SEQ.items()}
+_LEAF_INV = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def jax_tree_from_state_dict(state_dict: dict) -> tuple[dict, dict]:
+    """The port's (reference-named) state dict -> (params, batch_stats)
+    nested dicts of float32 numpy arrays in the JAX package's naming.
+    ``num_batches_tracked`` and ``attn_mask`` entries and a DDP ``module.``
+    prefix are dropped."""
+    params: dict = {}
+    stats: dict = {}
+    for key, value in state_dict.items():
+        if "attn_mask" in key or key.endswith("num_batches_tracked"):
+            continue
+        w = np.asarray(value.detach().cpu() if isinstance(value, torch.Tensor) else value,
+                       dtype=np.float32)
+        parts = key.split(".")
+        if parts[0] == "module":
+            parts = parts[1:]
+        *mod, leaf = parts
+        if mod[0] == "feature":
+            if ".".join(mod[1:3]) in _FEATURE_SEQ_INV:     # ConvBlock: .conv / .bn
+                path = ["feature", _FEATURE_SEQ_INV[".".join(mod[1:3])], *mod[3:]]
+            else:                                           # head: a raw conv
+                path = ["feature", mod[1], "conv"]
+        elif mod[0] in ("cost_regularization", "cost_regularization_refine"):
+            top = ("cost_reg_refine_" if mod[0].endswith("refine") else "cost_reg_") + mod[1]
+            path = [top, *mod[2:]] + (["conv"] if mod[3] == "prob" else [])
+        else:
+            raise KeyError(f"unrecognized state-dict key {key!r}")
+        if path[-1] == "bn":
+            tree, name = (stats, _LEAF_INV[leaf]) if leaf.startswith("running_") \
+                else (params, _LEAF_INV[leaf])
+        elif leaf == "weight":
+            # the inverse axis permutation of _kernel_to_torch
+            tree, name = params, "kernel"
+            w = w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.transpose(2, 3, 4, 1, 0)
+        elif leaf == "bias":
+            tree, name = params, "bias"
+        else:
+            raise KeyError(f"unknown leaf in {key!r}")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[name] = np.ascontiguousarray(w)
+    return params, stats
 
 
 def load_reference_state_dict(model: nn.Module, state_dict: dict) -> nn.Module:

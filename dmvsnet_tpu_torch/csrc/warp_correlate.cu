@@ -21,9 +21,9 @@
 // in order, and for each view takes the 4 taps as float4 loads of C
 // contiguous floats (channels-last), forming both group sums on the fly;
 // it writes one float2.  px/py are clamped to [-2, W+1] x [-2, H+1] before
-// floorf: refine hypotheses can be negative or huge, a float->int
-// conversion out of range is undefined, and taps outside the image carry
-// weight 0 either way.
+// floorf (warp_geometry.cuh, shared with the adjoint kernels): refine
+// hypotheses can be negative or huge, a float->int conversion out of range
+// is undefined, and taps outside the image carry weight 0 either way.
 //
 // What bounds it on an H100: per (pixel, plane, view) it does about
 // 10*C + 20 fp32 operations against at least 12 bytes per (pixel, plane)
@@ -39,14 +39,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "warp_geometry.cuh"
 
-// (m[0] x + m[1] y + m[2]) d + m[3], rounded op by op in that order
-__device__ __forceinline__ float ray(const float* m, float x, float y, float d) {
-  const float r = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 0), x), __fmul_rn(__ldg(m + 1), y)),
-                            __ldg(m + 2));
-  return __fadd_rn(__fmul_rn(r, d), __ldg(m + 3));
-}
+namespace {
 
 template <int C>
 __global__ void __launch_bounds__(256) warp_correlate_kernel(
@@ -80,42 +75,15 @@ __global__ void __launch_bounds__(256) warp_correlate_kernel(
   for (int v = 1; v < V; ++v) {
     const float* m = rel + ((long long)b * (V - 1) + (v - 1)) * 12;
     // coordinates and tap weights round exactly as the plain version's
-    // separate elementwise ops do (no FMA contraction): at 1152 px one ulp
-    // of px moves a tap weight by ~6e-5, which white-noise features turn
-    // into cost differences above the stated tolerance
-    const float p0 = ray(m + 0, fx, fy, dep);
-    const float p1 = ray(m + 4, fx, fy, dep);
-    float z = ray(m + 8, fx, fy, dep);
-    if (z == 0.0f) z += 1e-5f;
-    const float px = fminf(fmaxf(__fdiv_rn(p0, z), -2.0f), (float)W + 1.0f);
-    const float py = fminf(fmaxf(__fdiv_rn(p1, z), -2.0f), (float)H + 1.0f);
-
-    const float x0f = floorf(px);
-    const float y0f = floorf(py);
-    const float wx = __fsub_rn(px, x0f);
-    const float wy = __fsub_rn(py, y0f);
-    const float ux = __fsub_rn(1.0f, wx);
-    const float uy = __fsub_rn(1.0f, wy);
-    const int x0 = (int)x0f;
-    const int y0 = (int)y0f;
-    const int x1 = x0 + 1;
-    const int y1 = y0 + 1;
-    const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
-    const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
-    const float w00 = (vx0 && vy0) ? __fmul_rn(ux, uy) : 0.0f;
-    const float w10 = (vx1 && vy0) ? __fmul_rn(wx, uy) : 0.0f;
-    const float w01 = (vx0 && vy1) ? __fmul_rn(ux, wy) : 0.0f;
-    const float w11 = (vx1 && vy1) ? __fmul_rn(wx, wy) : 0.0f;
-
-    // clamped tap addresses are always inside the image; invalid taps
-    // read a border pixel with weight 0
-    const int xa = min(max(x0, 0), W - 1), xb = min(max(x1, 0), W - 1);
-    const int ya = min(max(y0, 0), H - 1), yb = min(max(y1, 0), H - 1);
+    // separate elementwise ops do (warp_geometry.cuh); a tap outside the
+    // image reads a border pixel with weight 0
+    const dmvs::Taps t = dmvs::sample_taps(m, fx, fy, dep, H, W);
+    const float w00 = t.w[0], w10 = t.w[1], w01 = t.w[2], w11 = t.w[3];
     const float* src = feats + ((long long)b * V + v) * hw * C;
-    const float4* t00 = reinterpret_cast<const float4*>(src + ((long long)ya * W + xa) * C);
-    const float4* t10 = reinterpret_cast<const float4*>(src + ((long long)ya * W + xb) * C);
-    const float4* t01 = reinterpret_cast<const float4*>(src + ((long long)yb * W + xa) * C);
-    const float4* t11 = reinterpret_cast<const float4*>(src + ((long long)yb * W + xb) * C);
+    const float4* t00 = reinterpret_cast<const float4*>(src + (long long)t.pix[0] * C);
+    const float4* t10 = reinterpret_cast<const float4*>(src + (long long)t.pix[1] * C);
+    const float4* t01 = reinterpret_cast<const float4*>(src + (long long)t.pix[2] * C);
+    const float4* t11 = reinterpret_cast<const float4*>(src + (long long)t.pix[3] * C);
 
     float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll

@@ -19,53 +19,24 @@ import torch
 
 from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.config import Config
-from dmvsnet_tpu_torch.convert import load_reference_state_dict
 from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 from dmvsnet_tpu_torch.data.splits import resolve_scan_list
+from dmvsnet_tpu_torch.engine.checkpoint import restore_weights
 from dmvsnet_tpu_torch.engine.steps import make_infer_step
+from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
 from dmvsnet_tpu_torch.fusion.tank_config import TANK_SCENE_CONFIG
 from dmvsnet_tpu_torch.models import MVSNet
-from dmvsnet_tpu_torch.models.blocks import init_weights
 
 
 def build_model(cfg: Config, device: torch.device) -> MVSNet:
     """The eval MVSNet of ``cfg`` on ``device``: weights from ``cfg.resume``
-    (a reference-layout torch state dict), else a seeded random init from
-    ``cfg.seed``."""
-    if cfg.fea_mode != "fpn":
-        raise NotImplementedError(f"fea_mode={cfg.fea_mode!r}: only 'fpn' is implemented")
-    if cfg.agg_mode != "variance":
-        raise NotImplementedError(
-            f"agg_mode={cfg.agg_mode!r}: adaptive aggregation is not ported yet "
-            "(ROADMAP.md, open items §1: adaptive aggregation)")
-    for name in ("compute_dtype", "costreg_dtype", "feature_dtype"):
-        if getattr(cfg, name) not in ("auto", "float32"):
-            raise NotImplementedError(f"{name}={getattr(cfg, name)!r}: the port runs fp32 only")
-    impl = cfg.warp_impl
-    if impl == "auto":
-        impl = "cuda" if device.type == "cuda" else "torch"
-    elif impl == "epipolar":
-        raise NotImplementedError(
-            "warp_impl='epipolar' is not ported yet (ROADMAP.md, open items §1: "
-            "kernels 4+5 with epipolar routing)")
-    elif impl == "cuda" and device.type != "cuda":
-        raise ValueError("warp_impl='cuda' needs a CUDA device")
-    elif impl not in ("cuda", "torch"):
-        raise ValueError(f"warp_impl must be auto, cuda or torch, got {impl!r}")
-
-    # build without allocating, then fill every tensor from one seeded
-    # CPU generator: the same seed gives the same weights on every device
-    with torch.device("meta"):
-        model = MVSNet(ndepths=tuple(cfg.ndepths),
-                       depth_interval_ratio=tuple(cfg.interval_ratio),
-                       inverse_depth=cfg.inverse_depth, warp_impl=impl)
-    model = model.to_empty(device="cpu")
-    init_weights(model, torch.Generator().manual_seed(cfg.seed))
+    (a reference-layout torch state dict, or a checkpoint holding one under
+    "model"), else a seeded random init from ``cfg.seed``."""
+    model = build_train_model(cfg, device)
     if cfg.resume:
-        payload = torch.load(cfg.resume, map_location="cpu", weights_only=True)
-        load_reference_state_dict(model, payload.get("model", payload))
-    return model.to(device).eval()
+        restore_weights(cfg.resume, model)
+    return model.eval()
 
 
 def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:

@@ -5,7 +5,9 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
 * transposed convolutions are ``ConvTranspose{2,3}d(k, stride=2,
   padding=k//2, output_padding=1)``: output exactly 2x the input;
 * batch norm uses eps 1e-5 and momentum 0.1 (flax's momentum=0.9 is the
-  same update written the other way round);
+  same update written the other way round); in train mode the running
+  variance is updated with the BIASED batch variance, as flax does
+  (``torch.nn.BatchNorm*`` would use the unbiased one);
 * a conv has a bias only when it has no batch norm.
 
 Attribute names follow the reference layout (``.conv`` and ``.bn``), so a
@@ -17,11 +19,52 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _DECONV = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
-_BN = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
+
+
+class _BiasedRunningVar:
+    """Train-mode batch norm whose running variance follows the JAX
+    package: ``var <- (1 - m) var + m * biased batch variance``.
+
+    ``torch.nn.BatchNorm*`` normalises with the biased variance but updates
+    the running variance with the unbiased one, n/(n-1) times larger (n =
+    elements per channel).  At the bottom of a cost U-Net n is a few dozen
+    at full size and a handful in small tests, so the factor is visible.
+    The fused call updates a copy of the running variance (autograd keeps
+    that copy for the backward, so the module's buffer can change in
+    place), and the buffer takes the corrected update, per channel.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self._check_input_dim(x)
+        m = self.momentum
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        # torch wrote var = (1-m) old + m b n/(n-1), b the biased variance;
+        # (n-1)/n var + (1-m)/n old = (1-m) old + m b
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
+            self.num_batches_tracked += 1
+        return y
+
+
+class BatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_BiasedRunningVar, nn.BatchNorm3d):
+    pass
+
+
+_BN = {2: BatchNorm2d, 3: BatchNorm3d}
 
 
 class ConvBlock(nn.Module):

@@ -1,14 +1,17 @@
-"""The cascade dual-depth MVS network, eval forward (port of
-dmvsnet_tpu.models.mvsnet).
+"""The cascade dual-depth MVS network (port of dmvsnet_tpu.models.mvsnet).
+``model.train()`` / ``model.eval()`` select the batch-norm mode, as the JAX
+package's ``train`` argument does.
 
-* all B*V images go through the feature net in one call (eval batch norm
-  uses running statistics, so this equals any chunking);
+* all B*V images go through the feature net in one call: in training the
+  batch statistics stay view- and batch-global, and eval batch norm uses
+  running statistics, so one call equals any chunking;
 * 3 cascade stages at 1/4, 1/2, 1/1 resolution; each stage runs two cost
   passes: a D-plane sweep (CostRegNet) and a 4-plane checkerboard refine
   (CostRegNetRefine) on the "_c" feature half;
 * every cost pass is one call of ops.warp_correlate: the hand-written CUDA
-  kernel (``warp_impl="cuda"``) or its plain PyTorch version
-  (``warp_impl="torch"``).
+  kernel (``warp_impl="cuda"``; its backward is the two adjoint kernels)
+  or its plain PyTorch version (``warp_impl="torch"``).  The sampling grid
+  carries no gradient on either path.
 
 Public layouts are the JAX package's: imgs (B, V, H, W, 3) with view 0 the
 reference; proj_matrices {"stage1".."stage3": (B, V, 2, 4, 4)};

@@ -4,7 +4,7 @@ Generates geometrically consistent multi-view inputs: a textured
 fronto-parallel plane (or a smooth height-field) at DTU-scale depths
 (425-935 mm) rendered into V translated pinhole cameras.  Used where the
 real datasets aren't on disk: unit tests and chip_smoke.py.  A copy of
-dmvsnet_tpu.utils.synthetic (the eval-scene and batch helpers).
+dmvsnet_tpu.utils.synthetic.
 """
 
 from __future__ import annotations
@@ -109,6 +109,53 @@ def write_eval_scene(
         data_io.write_cam_file(os.path.join(scan_dir, "cams", f"{v:08d}_cam.txt"), cam)
         pairs.append((v, [s for s in range(n_views) if s != v]))
     data_io.write_pair_file(os.path.join(scan_dir, "pair.txt"), pairs)
+
+
+def write_dtu_training_tree(
+    root: str, scans=("scan1",), n_views: int = 7, height: int = 512,
+    width: int = 640, depth: float = 600.0, seed: int = 0,
+) -> None:
+    """Materialize a miniature DTU-training-format tree:
+    Cameras/pair.txt, Cameras/train/*_cam.txt, Rectified/{scan}_train/*.png,
+    Depths_raw/{scan}/depth_map_*.pfm + depth_visual_*.png
+    (the layout of reference datasets/dtu_yao.py:141-149).
+
+    GT depth/mask are written at 2x target resolution because the reader
+    downsamples x2 then center-crops (reference dtu_yao.py:78-95)."""
+    import os
+
+    from PIL import Image
+
+    from dmvsnet_tpu_torch.data import io as data_io
+
+    imgs, cams, gt = render_plane_views(height, width, n_views, depth, seed)
+    os.makedirs(os.path.join(root, "Cameras/train"), exist_ok=True)
+    pairs = []
+    for v in range(n_views):
+        cam = cams[v].copy()
+        cam[1, :3, :] /= 4.0  # DTU-train cams are at 1/4 resolution
+        cam[1, 3, :] = [depth - 100.0, (200.0 / 192) / 1.06, 0, 0]
+        data_io.write_cam_file(
+            os.path.join(root, f"Cameras/train/{v:08d}_cam.txt"), cam
+        )
+        pairs.append((v, [s for s in range(n_views) if s != v]))
+    data_io.write_pair_file(os.path.join(root, "Cameras/pair.txt"), pairs)
+
+    gt2 = np.kron(gt, np.ones((2, 2), np.float32))  # 2x so reader's /2 recovers gt
+    for scan in scans:
+        rect = os.path.join(root, f"Rectified/{scan}_train")
+        draw = os.path.join(root, f"Depths_raw/{scan}")
+        os.makedirs(rect, exist_ok=True)
+        os.makedirs(draw, exist_ok=True)
+        for v in range(n_views):
+            for light in range(7):
+                Image.fromarray((imgs[v] * 255).astype(np.uint8)).save(
+                    os.path.join(rect, f"rect_{v + 1:03d}_{light}_r5000.png")
+                )
+            data_io.save_pfm(os.path.join(draw, f"depth_map_{v:04d}.pfm"), gt2)
+            Image.fromarray(np.full(gt2.shape, 255, np.uint8)).save(
+                os.path.join(draw, f"depth_visual_{v:04d}.png")
+            )
 
 
 def make_batch(

@@ -110,7 +110,7 @@ def test_kernel_wrapper_cpu_path_is_the_plain_version(rng):
     proj2[1, :, 0, 0, 3] += 1.5
     for dv in (np.linspace(450, 650, d, dtype=np.float32)[None].repeat(b, 0),
                rng.uniform(450, 650, (b, d, h, w)).astype(np.float32)):
-        before = twc.LAUNCHES
+        before = dict(twc.LAUNCHES)
         ours = twc.aggregate_cost_volume(torch.from_numpy(feats), torch.from_numpy(proj2),
                                          torch.from_numpy(dv)).numpy()
         assert twc.LAUNCHES == before
@@ -124,8 +124,17 @@ def test_kernel_wrapper_rejects_grad_and_bad_shapes(rng):
     feats = torch.from_numpy(rng.normal(size=(1, 2, 8, 8, 8)).astype(np.float32))
     rel = torch.zeros(1, 1, 3, 4)
     depth = torch.ones(1, 2, 8, 8)
-    with pytest.raises(RuntimeError, match="no backward"):
-        twc.warp_correlate(feats.clone().requires_grad_(), rel, depth)
+    # inputs that require grad are accepted now (the adjoint kernels exist):
+    # the result carries a gradient to the features and none to the grid
+    f, dep = feats.clone().requires_grad_(), depth.clone().requires_grad_()
+    twc.warp_correlate(f, rel, dep).sum().backward()
+    assert f.grad is not None and dep.grad is None
+    with pytest.raises(ValueError, match=r"feats must be \(B, V, H, W, C\)"):
+        twc.warp_correlate(feats[0], rel, depth)
+    with pytest.raises(ValueError, match="at least one source view"):
+        twc.warp_correlate(feats[:, :1], rel[:, :0], depth)
+    with pytest.raises(ValueError, match="depth must be"):
+        twc.warp_correlate(feats, rel, depth[..., :4])
     with pytest.raises(ValueError, match="rel must be"):
         twc.warp_correlate(feats, torch.zeros(1, 2, 3, 4), depth)
     with pytest.raises(TypeError, match="float32"):
