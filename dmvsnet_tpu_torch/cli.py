@@ -37,7 +37,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--interval_ratio", type=float, nargs="+", default=None)
     p.add_argument("--inverse_depth", action="store_true", default=None)
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"])
-    p.add_argument("--warp_impl", default=None, choices=["auto", "cuda", "torch"])
+    p.add_argument("--warp_impl", default=None, choices=["auto", "cuda", "epipolar", "torch"],
+                   help="cost pass: auto = the exact CUDA kernel on the card (plain torch on "
+                        "the CPU); epipolar = the rectified 1-D sweep, an eval-time "
+                        "approximation gated by NUMERICS.json tol.epi_*")
     p.add_argument("--costreg_dtype", default=None, choices=["auto", "float32", "bfloat16"])
     p.add_argument("--feature_dtype", default=None, choices=["auto", "float32", "bfloat16"])
     p.add_argument("--remat", action="store_true", default=None)

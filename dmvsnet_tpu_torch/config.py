@@ -1,10 +1,14 @@
 """Configuration: a copy of dmvsnet_tpu.config (the reference's argparse
 flags as one dataclass, plus the launcher recipes as named presets).
 
-Port differences: ``warp_impl`` takes ``auto | cuda | torch`` (``auto`` =
-the hand-written CUDA kernel on a CUDA device, its plain PyTorch version
-on the CPU), and this slice runs fp32 throughout, so ``auto`` means
-float32 for ``costreg_dtype`` and ``feature_dtype``.
+Port differences: ``warp_impl`` takes ``auto | cuda | epipolar | torch``.
+``auto`` = the hand-written exact CUDA kernel on a CUDA device, its plain
+PyTorch version on the CPU.  ``epipolar`` = the rectified 1-D sweep at the
+(stage, pass) pairs the model routes to it: an eval-time approximation
+(two extra resamples) gated by ``NUMERICS.json`` ``tol.epi_*``, never chosen
+by ``auto``; training with it runs the exact kernel.  The port runs fp32
+throughout, so ``auto`` means float32 for ``costreg_dtype`` and
+``feature_dtype``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ class Config:
     interval_ratio: Sequence[float] = (4.0, 2.0, 1.0)
     inverse_depth: bool = False
     compute_dtype: str = "float32"
-    warp_impl: str = "auto"  # auto | cuda | torch
+    warp_impl: str = "auto"  # auto | cuda | epipolar (eval-time approximation) | torch
     costreg_dtype: str = "auto"  # auto (= float32) | float32
     feature_dtype: str = "auto"  # auto (= float32) | float32
     remat: bool = False

@@ -1,5 +1,6 @@
 // Plane-sweep sampling geometry shared by the warp-correlate forward kernel
-// and its two adjoint kernels.
+// and its two adjoint kernels; the bilinear taps also serve the resample
+// kernel.
 //
 // The three kernels must agree bit for bit on where a (pixel, plane, view)
 // samples the source image and with which bilinear weights: the adjoints
@@ -31,19 +32,13 @@ struct Taps {
   int pix[4];
 };
 
-// m: the 12 floats (3 x 4, row major) of one relative projection.
-// p = M (x, y, 1)^T d + t, (px, py) = (p0/z, p1/z), z == 0 -> 1e-5.
-// px/py are clamped to [-2, W+1] x [-2, H+1] before floorf: refine
-// hypotheses can be negative or huge, a float->int conversion out of range
-// is undefined, and taps outside the image carry weight 0 either way.
-__device__ __forceinline__ Taps sample_taps(const float* m, float fx, float fy, float dep,
-                                            int H, int W) {
-  const float p0 = ray(m + 0, fx, fy, dep);
-  const float p1 = ray(m + 4, fx, fy, dep);
-  float z = ray(m + 8, fx, fy, dep);
-  if (z == 0.0f) z += 1e-5f;
-  const float px = fminf(fmaxf(__fdiv_rn(p0, z), -2.0f), (float)W + 1.0f);
-  const float py = fminf(fmaxf(__fdiv_rn(p1, z), -2.0f), (float)H + 1.0f);
+// The taps of one bilinear sample at pixel coordinates (px, py), which are
+// clamped to [-2, W+1] x [-2, H+1] before floorf: refine hypotheses can be
+// negative or huge, a float->int conversion out of range is undefined, and
+// taps outside the image carry weight 0 either way.
+__device__ __forceinline__ Taps bilinear_taps(float px, float py, int H, int W) {
+  px = fminf(fmaxf(px, -2.0f), (float)W + 1.0f);
+  py = fminf(fmaxf(py, -2.0f), (float)H + 1.0f);
 
   const float x0f = floorf(px);
   const float y0f = floorf(py);
@@ -70,6 +65,17 @@ __device__ __forceinline__ Taps sample_taps(const float* m, float fx, float fy, 
   t.pix[2] = yb * W + xa;
   t.pix[3] = yb * W + xb;
   return t;
+}
+
+// m: the 12 floats (3 x 4, row major) of one relative projection.
+// p = M (x, y, 1)^T d + t, (px, py) = (p0/z, p1/z), z == 0 -> 1e-5.
+__device__ __forceinline__ Taps sample_taps(const float* m, float fx, float fy, float dep,
+                                            int H, int W) {
+  const float p0 = ray(m + 0, fx, fy, dep);
+  const float p1 = ray(m + 4, fx, fy, dep);
+  float z = ray(m + 8, fx, fy, dep);
+  if (z == 0.0f) z += 1e-5f;
+  return bilinear_taps(__fdiv_rn(p0, z), __fdiv_rn(p1, z), H, W);
 }
 
 }  // namespace dmvs

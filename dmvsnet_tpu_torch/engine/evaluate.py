@@ -45,7 +45,10 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
 
     Returns {"maps": depth maps written, "dispatch_seconds": wall seconds
     of each infer dispatch (host copy of the result included),
-    "device": the device}.
+    "device": the device}; under ``warp_impl="epipolar"`` also
+    "sweep_engaged": per dispatch {"stage1", "stage1_refine", ...: (B, V-1)
+    nested bool lists}, which (batch element, source view) of each cost pass
+    took the rectified sweep (the others took the exact kernel).
     """
     device = resolve_device(device)
     if cfg.filter_method in ("pcd", "dypcd"):
@@ -66,7 +69,13 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
         scans = resolve_scan_list(cfg.testlist, cfg.datapath)
     model = build_model(cfg, device)
     infer = make_infer_step()
-    maps, dispatch_seconds = 0, []
+    maps, dispatch_seconds, engaged = 0, [], []
+    if model.warp_impl == "epipolar":
+        def record(_module, _args, out):
+            stages = [k for k in out if k.startswith("stage")]
+            engaged.append({k + suffix: out[k]["sweep_engaged" + suffix].tolist()
+                            for k in stages for suffix in ("", "_refine")})
+        model.register_forward_hook(record)
 
     # fix_res latch carried across the per-scene datasets
     latched_hw = None
@@ -135,4 +144,7 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
                     maps += 1
         if cfg.fix_res:
             latched_hw = ds.latched_hw
-    return {"maps": maps, "dispatch_seconds": dispatch_seconds, "device": str(device)}
+    summary = {"maps": maps, "dispatch_seconds": dispatch_seconds, "device": str(device)}
+    if model.warp_impl == "epipolar":
+        summary["sweep_engaged"] = engaged
+    return summary

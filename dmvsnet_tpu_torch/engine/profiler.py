@@ -1,15 +1,17 @@
 """Where one eval forward, or one train step, spends its time on the card.
 
-    python3 -m dmvsnet_tpu_torch.engine.profiler [--batch 2] [--tf32] [--cudnn-benchmark]
+    python3 -m dmvsnet_tpu_torch.engine.profiler [--batch 2] [--warp_impl epipolar] \\
+        [--tf32] [--cudnn-benchmark]
     python3 -m dmvsnet_tpu_torch.engine.profiler --train [--tf32] [--cudnn-benchmark]
 
 Builds the DTU-eval MVSNet (864x1152, 5 views, ndepths 48/32/8, inverse
 depth, seeded random weights) on CUDA and times one batch forward with
-CUDA events: the whole forward, the feature net, each cost U-Net, and
-each cost pass (relative projections + the warp-correlate kernel), the
-rest being sampling, depth heads and layout copies.  Then a
-torch.profiler table of the kernels by device time, and the peak device
-memory of a forward.
+CUDA events: the whole forward, the feature net, each cost U-Net, the
+cost passes (geometry, gates and kernels) and inside them each hand-written
+kernel under its own name (``warp_correlate``; with ``--warp_impl
+epipolar`` also ``resample`` and ``sweep1d``), the rest being sampling,
+depth heads and layout copies.  Then a torch.profiler table of the kernels
+by device time, and the peak device memory of a forward.
 
 ``--train`` builds the DTU-train MVSNet instead (512x640, 5 views, batch 2,
 ndepths 48/32/8, inverse depth, fp32, Adam) and times train steps on one
@@ -39,6 +41,8 @@ from dmvsnet_tpu_torch.engine.evaluate import build_model
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
+from dmvsnet_tpu_torch.ops import cuda_build
+from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
 from dmvsnet_tpu_torch.utils import synthetic
 
@@ -84,8 +88,22 @@ class _Spans:
         return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
 
 
+def _timed_launches(spans: _Spans):
+    """cuda_build.launch wrapped in a span named after the kernel."""
+    real = cuda_build.launch
+
+    def timed_launch(name, *args):
+        spans.start(name)
+        real(name, *args)
+        spans.end(name)
+
+    return real, timed_launch
+
+
 def breakdown(model, inputs, reps: int = 3) -> dict[str, float]:
-    """Median over `reps` forwards of each span's summed milliseconds."""
+    """Median over `reps` forwards of each span's summed milliseconds.  The
+    kernels' spans lie inside ``cost_passes``; ``other`` is the forward less
+    the module and cost-pass spans."""
     spans = _Spans()
     hooks = []
     for name, mod in model.named_modules():
@@ -94,16 +112,21 @@ def breakdown(model, inputs, reps: int = 3) -> dict[str, float]:
                 "costreg_refine" if "refine" in name else "costreg") + f"_s{int(name[-1]) + 1}"
             hooks.append(mod.register_forward_pre_hook(lambda m, a, k=key: spans.start(k)))
             hooks.append(mod.register_forward_hook(lambda m, a, o, k=key: spans.end(k)))
-    real = wc.aggregate_cost_volume
 
-    def timed_pass(*args, **kw):
-        spans.start("cost_passes")
-        out = real(*args, **kw)
-        spans.end("cost_passes")
-        return out
+    def timed_pass(real):
+        def run(*args, **kw):
+            spans.start("cost_passes")
+            out = real(*args, **kw)
+            spans.end("cost_passes")
+            return out
+        return run
 
+    real_exact, real_epi = wc.aggregate_cost_volume, es.aggregate_cost_volume_epipolar
+    real_launch, timed_launch = _timed_launches(spans)
     runs = []
-    wc.aggregate_cost_volume = timed_pass
+    wc.aggregate_cost_volume = timed_pass(real_exact)
+    es.aggregate_cost_volume_epipolar = timed_pass(real_epi)
+    cuda_build.launch = timed_launch
     try:
         with torch.inference_mode():
             model(*inputs)
@@ -114,11 +137,13 @@ def breakdown(model, inputs, reps: int = 3) -> dict[str, float]:
                 spans.end("forward")
                 runs.append(spans.ms())
     finally:
-        wc.aggregate_cost_volume = real
+        wc.aggregate_cost_volume, es.aggregate_cost_volume_epipolar = real_exact, real_epi
+        cuda_build.launch = real_launch
         for h in hooks:
             h.remove()
     out = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    out["other"] = out["forward"] - sum(v for k, v in out.items() if k != "forward")
+    out["other"] = out["forward"] - sum(
+        v for k, v in out.items() if k != "forward" and k not in cuda_build.KERNELS)
     return out
 
 
@@ -139,12 +164,7 @@ def train_breakdown(cfg, model, optimizer, scheduler, batch, reps: int = 3):
     """(median over `reps` train steps of each span's summed milliseconds,
     a function that runs one more step)."""
     spans = _Spans()
-    real = wc._launch
-
-    def timed_launch(name, *args):
-        spans.start(name)
-        real(name, *args)
-        spans.end(name)
+    real_launch, timed_launch = _timed_launches(spans)
 
     def step():
         model.train()
@@ -164,7 +184,7 @@ def train_breakdown(cfg, model, optimizer, scheduler, batch, reps: int = 3):
         spans.end("step")
 
     runs = []
-    wc._launch = timed_launch
+    cuda_build.launch = timed_launch
     try:
         step()
         for _ in range(reps):
@@ -172,7 +192,7 @@ def train_breakdown(cfg, model, optimizer, scheduler, batch, reps: int = 3):
             step()
             runs.append(spans.ms())
     finally:
-        wc._launch = real
+        cuda_build.launch = real_launch
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}, step
 
 
@@ -198,6 +218,8 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser("dmvsnet_tpu_torch.engine.profiler")
     p.add_argument("--train", action="store_true", help="break a train step down instead")
     p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--warp_impl", default="auto", choices=["auto", "cuda", "epipolar", "torch"],
+                   help="cost passes of the eval forward (epipolar: the model's routing)")
     p.add_argument("--tf32", action="store_true", help="measure with TF32 convolutions")
     p.add_argument("--cudnn-benchmark", action="store_true",
                    help="measure with cuDNN's algorithm search")
@@ -209,7 +231,8 @@ def main(argv=None) -> None:
     if args.train:
         main_train(args, device)
         return
-    cfg = preset("dtu_test", filter_method="none", eval_batch=args.batch)
+    cfg = preset("dtu_test", filter_method="none", eval_batch=args.batch,
+                 warp_impl=args.warp_impl)
     model = build_model(cfg, device)
     inputs = _inputs(cfg, args.batch, device)
     times = breakdown(model, inputs)
@@ -218,8 +241,8 @@ def main(argv=None) -> None:
         model(*inputs)
     peak = torch.cuda.max_memory_allocated()
     print("breakdown " + json.dumps(dict(
-        device=torch.cuda.get_device_name(0), batch=args.batch, tf32=args.tf32,
-        cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9,
+        device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
+        tf32=args.tf32, cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9,
         ms_per_map=times["forward"] / args.batch, ms=times)), flush=True)
     print(kernel_table(model, inputs), flush=True)
 

@@ -67,17 +67,15 @@ def build_model(cfg: Config, device: torch.device) -> MVSNet:
         raise NotImplementedError(
             "remat=True is not ported yet (ROADMAP.md, open items §1: "
             "rematerialisation with torch.utils.checkpoint)")
+    # "auto" never means the epipolar sweep: it is an approximation, taken
+    # only on request (on CPU tensors its wrappers run their plain versions)
     impl = cfg.warp_impl
     if impl == "auto":
         impl = "cuda" if device.type == "cuda" else "torch"
-    elif impl == "epipolar":
-        raise NotImplementedError(
-            "warp_impl='epipolar' is not ported yet (ROADMAP.md, open items §1: "
-            "kernels 4+5 with epipolar routing)")
     elif impl == "cuda" and device.type != "cuda":
         raise ValueError("warp_impl='cuda' needs a CUDA device")
-    elif impl not in ("cuda", "torch"):
-        raise ValueError(f"warp_impl must be auto, cuda or torch, got {impl!r}")
+    elif impl not in ("cuda", "epipolar", "torch"):
+        raise ValueError(f"warp_impl must be auto, cuda, epipolar or torch, got {impl!r}")
 
     # build without allocating, then fill every tensor from one seeded
     # CPU generator: the same seed gives the same weights on every device

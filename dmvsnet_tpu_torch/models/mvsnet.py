@@ -11,7 +11,15 @@ package's ``train`` argument does.
 * every cost pass is one call of ops.warp_correlate: the hand-written CUDA
   kernel (``warp_impl="cuda"``; its backward is the two adjoint kernels)
   or its plain PyTorch version (``warp_impl="torch"``).  The sampling grid
-  carries no gradient on either path.
+  carries no gradient on either path;
+* ``warp_impl="epipolar"`` sends the (stage, pass) pairs listed in
+  ``epipolar_main_stages`` / ``epipolar_refine_stages`` through the
+  rectified 1-D sweep (ops.epipolar_sweep: the resample and sweep kernels,
+  per-view fallback to the exact kernel) when the module is in eval mode.
+  The sweep is an approximation without a gradient, so a module in training
+  mode sends every pass to the exact kernel.  Each stage's output carries
+  ``sweep_engaged`` and ``sweep_engaged_refine``: (B, V-1) bool tensors on
+  the CPU saying which (batch element, source view) took the sweep.
 
 Public layouts are the JAX package's: imgs (B, V, H, W, 3) with view 0 the
 reference; proj_matrices {"stage1".."stage3": (B, V, 2, 4, 4)};
@@ -30,7 +38,14 @@ from dmvsnet_tpu_torch.core import sampling
 from dmvsnet_tpu_torch.models import depth_net
 from dmvsnet_tpu_torch.models.cost_reg import CostRegNet, CostRegNetRefine
 from dmvsnet_tpu_torch.models.feature_net import FeatureNet
-from dmvsnet_tpu_torch.ops import warp_correlate
+from dmvsnet_tpu_torch.ops import epipolar_sweep, warp_correlate
+
+# Per-(stage, pass) epipolar routing, consulted only under
+# warp_impl="epipolar": the stage indices whose main / refine cost pass take
+# the rectified 1-D sweep; the others keep the exact kernel.  PERF.md has
+# the per-pass A/B on an H100 that these defaults come from.
+EPIPOLAR_MAIN_STAGES: tuple[int, ...] = (0, 1)
+EPIPOLAR_REFINE_STAGES: tuple[int, ...] = ()
 
 
 class MVSNet(nn.Module):
@@ -42,10 +57,17 @@ class MVSNet(nn.Module):
         base_channels: int = 8,
         inverse_depth: bool = False,
         warp_impl: str = "cuda",
+        epipolar_main_stages: Sequence[int] | None = None,
+        epipolar_refine_stages: Sequence[int] | None = None,
     ):
         super().__init__()
-        if warp_impl not in ("cuda", "torch"):
-            raise ValueError(f"warp_impl must be 'cuda' or 'torch', got {warp_impl!r}")
+        if warp_impl not in ("cuda", "epipolar", "torch"):
+            raise ValueError(
+                f"warp_impl must be 'cuda', 'epipolar' or 'torch', got {warp_impl!r}")
+        self.epipolar_main_stages = tuple(
+            EPIPOLAR_MAIN_STAGES if epipolar_main_stages is None else epipolar_main_stages)
+        self.epipolar_refine_stages = tuple(
+            EPIPOLAR_REFINE_STAGES if epipolar_refine_stages is None else epipolar_refine_stages)
         self.ndepths = tuple(ndepths)
         self.depth_interval_ratio = tuple(depth_interval_ratio)
         self.inverse_depth = inverse_depth
@@ -106,20 +128,34 @@ class MVSNet(nn.Module):
                     inverse=self.inverse_depth)
                 samples = sampling.upsample_depth_samples(samples, sh, sw)
 
-            def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module) -> torch.Tensor:
-                cost = warp_correlate.aggregate_cost_volume(
-                    feats[key], proj2, dv, impl=self.warp_impl)  # (B, D, h, w, 2)
+            def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module, sweep_stages):
+                engaged = None
+                if self.warp_impl == "epipolar" and not self.training and s in sweep_stages:
+                    cost, engaged = epipolar_sweep.aggregate_cost_volume_epipolar(
+                        feats[key], proj2, dv)
+                else:
+                    cost = warp_correlate.aggregate_cost_volume(
+                        feats[key], proj2, dv,
+                        impl="torch" if self.warp_impl == "torch" else "cuda")
+                    if self.warp_impl == "epipolar":
+                        engaged = torch.zeros((b, v - 1), dtype=torch.bool)
                 out = reg(cost.permute(0, 4, 1, 2, 3).contiguous())  # (B, 4, D, h, w)
-                return out.permute(0, 2, 3, 4, 1)                    # (B, D, h, w, 4)
+                return out.permute(0, 2, 3, 4, 1), engaged           # (B, D, h, w, 4)
 
             # pass 1: full-plane sweep
-            cost_reg = cost_pass(stage, samples, self.cost_regularization[s])
+            cost_reg, engaged = cost_pass(stage, samples, self.cost_regularization[s],
+                                          self.epipolar_main_stages)
             stage_out = depth_net.forward(cost_reg, samples, interval)
 
             # pass 2: 4-plane checkerboard refine on the "_c" features
             dv_c = stage_out["depth_values_c"]
-            cost_reg_c = cost_pass(stage + "_c", dv_c, self.cost_regularization_refine[s])
+            cost_reg_c, engaged_c = cost_pass(stage + "_c", dv_c,
+                                              self.cost_regularization_refine[s],
+                                              self.epipolar_refine_stages)
             refine_out = depth_net.refine(cost_reg_c, dv_c, interval)
+            if engaged is not None:
+                refine_out["sweep_engaged"] = engaged
+                refine_out["sweep_engaged_refine"] = engaged_c
 
             # first-pass keys win: the final photometric_confidence is the
             # stage-3 first-pass confidence, as in the reference

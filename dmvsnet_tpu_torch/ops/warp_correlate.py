@@ -19,11 +19,9 @@ the adjoints see bit for bit the taps and weights of the forward.  The
 sampling grid carries no gradient: ``rel`` and ``depth`` get ``None``, as
 the JAX package's custom VJP gives them zero cotangents.
 
-The kernels are built at first use with ``nvcc`` (one process per source,
-started together) into shared libraries with a plain C interface (no
-PyTorch headers, so a build takes seconds), cached under ``build/`` at the
-repository root by a hash of source, header and flags, and loaded with
-``ctypes``.
+The kernels are declared here and built at first use by
+``ops/cuda_build.py`` (``nvcc`` into plain-C shared libraries under
+``build/``, loaded with ``ctypes``).
 
 The wrappers take the plain versions only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises.
@@ -31,98 +29,26 @@ tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 from torch.autograd.function import once_differentiable
 
 from dmvsnet_tpu_torch.core import geometry
-from dmvsnet_tpu_torch.ops import warp
+from dmvsnet_tpu_torch.ops import cuda_build, warp
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-HEADER = CSRC / "warp_geometry.cuh"
-# kernel name -> source file; the C entry point is "dmvs_" + name
-SOURCES = {
-    "warp_correlate": CSRC / "warp_correlate.cu",
-    "warp_correlate_grad_ref": CSRC / "warp_correlate_grad_ref.cu",
-    "warp_correlate_grad_src": CSRC / "warp_correlate_grad_src.cu",
-}
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 CHANNELS = (8, 16, 32)
 
-# Launches per kernel; a wrapper adds one where it launches its kernel and
-# nowhere else.  reset_launches() sets every count to 0 to count a run.
-LAUNCHES: dict[str, int] = dict.fromkeys(SOURCES, 0)
-
-_fns: dict[str, ctypes._CFuncPtr] = {}
-# What the last build() did: seconds, and per kernel the library path,
-# whether it was compiled (or found cached) and the ptxas log.
-BUILD_INFO: dict = {}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    found = cand if os.path.isfile(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                           "are built from csrc/ at first use on the card")
-    return found
-
-
-def build() -> dict[str, ctypes._CFuncPtr]:
-    """Compile (what is not cached) and load the three kernel libraries;
-    returns {kernel name: C function}."""
-    if _fns:
-        return _fns
-    t0 = time.perf_counter()
-    header = HEADER.read_bytes()
-    flags = " ".join(NVCC_FLAGS).encode()
-    paths, procs = {}, {}
-    for name, src in SOURCES.items():
-        tag = hashlib.sha256(src.read_bytes() + header + flags).hexdigest()[:16]
-        paths[name] = BUILD_DIR / f"{name}-{tag}.so"
-        if not paths[name].exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
-            procs[name] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        logs[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc failed ({proc.returncode}):\n{logs[name]}")
-        else:
-            os.replace(tmp, paths[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    fns = {}
-    for name, path in paths.items():
-        fn = getattr(ctypes.CDLL(str(path)), "dmvs_" + name)
-        n_ptr = 4 if name == "warp_correlate" else 5
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    BUILD_INFO.update(
-        seconds=time.perf_counter() - t0,
-        kernels={name: dict(path=str(paths[name]), built=name in procs,
-                            log=logs.get(name, "")) for name in SOURCES})
-    _fns.update(fns)
-    return _fns
+# kernel name -> (source, C arguments): feats, rel, depth and the kernel's
+# remaining tensors, then B, V, D, H, W, C and the stream.  LAUNCHES counts
+# launches per kernel; a wrapper adds one where it launches its kernel and
+# nowhere else (cuda_build.reset_launches() sets every count to 0).
+_GEOMETRY = ("warp_geometry.cuh",)
+LAUNCHES: dict[str, int] = cuda_build.declare({
+    "warp_correlate": ("warp_correlate.cu", cuda_build.pointer_ints(4, 6), _GEOMETRY),
+    "warp_correlate_grad_ref": ("warp_correlate_grad_ref.cu", cuda_build.pointer_ints(5, 6),
+                                _GEOMETRY),
+    "warp_correlate_grad_src": ("warp_correlate_grad_src.cu", cuda_build.pointer_ints(5, 6),
+                                _GEOMETRY),
+})
 
 
 def warp_correlate_plain(
@@ -215,24 +141,12 @@ def _launch(name: str, feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tens
     """Launch kernel ``name`` on CUDA tensors: the three inputs, then the
     kernel's remaining tensors (the output; or the cotangent and the
     gradient buffer).  Raises on what the kernel does not take."""
-    if feats.device.type != "cuda":
-        raise ValueError(f"unsupported device {feats.device}")
     b, v, h, w, c = feats.shape
     if c not in CHANNELS:
         raise ValueError(f"kernel built for C in {CHANNELS}, got {c}")
-    tensors = (feats, rel, depth, *rest)
-    for t in tensors:
-        if not t.is_contiguous():
-            raise ValueError("kernel tensors must be contiguous")
     if feats.data_ptr() % 16 or rest[-1].data_ptr() % 16:
         raise ValueError("feats and the output must be 16-byte aligned (float4 access)")
-    fn = build()[name]
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        LAUNCHES[name] += 1
-        err = fn(*(t.data_ptr() for t in tensors), b, v, depth.shape[1], h, w, c, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    cuda_build.launch(name, (feats, rel, depth, *rest), (b, v, depth.shape[1], h, w, c))
 
 
 class _WarpCorrelate(torch.autograd.Function):

@@ -7,6 +7,8 @@
 * options the port does not run yet raise and name the ROADMAP item;
 * the CLI's --test path writes depth maps on --device cpu, its default mode
   is training, and --vis still errors;
+* warp_impl="epipolar" builds, is never what "auto" means, reports which
+  pairs took the sweep, and takes no sweep in training mode;
 * the seeded initialisation depends on the seed alone.
 """
 
@@ -26,6 +28,7 @@ from dmvsnet_tpu_torch.data.loader import get_dataset
 from dmvsnet_tpu_torch.engine.evaluate import build_model, run_test
 from dmvsnet_tpu_torch.engine.train import Trainer
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
+from dmvsnet_tpu_torch.models import mvsnet
 from dmvsnet_tpu_torch.utils import synthetic
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dmvsnet_tpu"}
@@ -96,8 +99,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(scene):
 
 def test_unported_options_raise(scene):
     cpu = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="epipolar"):
-        build_model(_cfg(scene, warp_impl="epipolar"), cpu)
+    with pytest.raises(ValueError, match="warp_impl"):
+        build_model(_cfg(scene, warp_impl="pallas"), cpu)
     with pytest.raises(NotImplementedError, match="adaptive"):
         build_model(_cfg(scene, agg_mode="adaptive"), cpu)
     with pytest.raises(NotImplementedError, match="fp32"):
@@ -123,6 +126,33 @@ def test_unported_options_raise(scene):
     assert not build_model(_cfg(scene), cpu).training
 
 
+def test_epipolar_builds_and_is_never_what_auto_means(scene):
+    """warp_impl="epipolar" builds on the CPU with the routing defaults, auto
+    still resolves to the exact path, and a model in training mode sends
+    every pass to the exact path (no flag set, the gradient flows)."""
+    cpu = torch.device("cpu")
+    assert build_model(_cfg(scene), cpu).warp_impl == "torch"
+    model = build_model(_cfg(scene, warp_impl="epipolar"), cpu)
+    assert model.warp_impl == "epipolar" and not model.training
+    assert model.epipolar_main_stages == mvsnet.EPIPOLAR_MAIN_STAGES
+    assert model.epipolar_refine_stages == mvsnet.EPIPOLAR_REFINE_STAGES
+    train_cfg = preset("dtu_train", datapath=str(scene / "data"), warp_impl="epipolar",
+                       ndepths=(8, 8, 8))
+    trained = build_train_model(train_cfg, cpu)
+    assert trained.training and trained.warp_impl == "epipolar"
+    trained.epipolar_main_stages = trained.epipolar_refine_stages = (0, 1, 2)
+    cams = np.stack([synthetic.camera_stack(115.0, 115.0, 48.0, 32.0, tx=-80.0 * i)
+                     for i in range(3)])
+    proj = {k: torch.from_numpy(p[None].copy())
+            for k, p in synthetic.stage_projections(cams).items()}
+    imgs = torch.rand((1, 3, 64, 96, 3), generator=torch.Generator().manual_seed(0))
+    out = trained(imgs, proj, torch.linspace(425.0, 935.0, 48)[None])
+    for s in range(3):
+        st = out[f"stage{s + 1}"]
+        assert not st["sweep_engaged"].any() and not st["sweep_engaged_refine"].any()
+    assert out["depth"].requires_grad
+
+
 def test_cli_test_path_on_cpu(scene):
     summary = cli.main([
         "--test", "--preset", "dtu_test", "--device", "cpu",
@@ -142,6 +172,39 @@ def test_cli_test_path_on_cpu(scene):
     with pytest.raises(FileNotFoundError, match="pair.txt"):
         cli.main(["--preset", "dtu_train", "--device", "cpu", "--datapath",
                   str(scene / "data"), "--trainlist", "scan1", "--testlist", "scan1"])
+
+
+def test_cli_epipolar_test_path_on_cpu_reports_the_flags(scene):
+    """--warp_impl epipolar through the CLI: depth maps as on the exact path,
+    and per dispatch the (B, V-1) flags of all six passes; the passes the
+    defaults do not route report no view."""
+    summary = cli.main([
+        "--test", "--preset", "dtu_test", "--device", "cpu", "--warp_impl", "epipolar",
+        "--datapath", str(scene / "data"), "--testlist", "scan1",
+        "--outdir", str(scene / "out"), "--ndepths", "8", "8", "8",
+        "--max_h", "64", "--max_w", "96", "--num_view", "3", "--filter_method", "none",
+    ])
+    assert summary["maps"] == 3
+    depth, _ = io.read_pfm(str(scene / "out/scan1/depth_est/00000001.pfm"))
+    assert depth.shape == (64, 96) and np.isfinite(depth).all()
+    assert len(summary["sweep_engaged"]) == 2  # eval_batch 2: two dispatches
+    for dispatch in summary["sweep_engaged"]:
+        assert set(dispatch) == {f"stage{s}{r}" for s in (1, 2, 3) for r in ("", "_refine")}
+        for s in range(3):
+            for suffix, routed in (("", mvsnet.EPIPOLAR_MAIN_STAGES),
+                                   ("_refine", mvsnet.EPIPOLAR_REFINE_STAGES)):
+                flags = dispatch[f"stage{s + 1}{suffix}"]
+                assert len(flags) == 2 and all(len(row) == 2 for row in flags)
+                if s not in routed:
+                    assert not any(any(row) for row in flags)
+        assert all(all(row) for row in dispatch["stage1"])
+    exact = cli.main([
+        "--test", "--preset", "dtu_test", "--device", "cpu",
+        "--datapath", str(scene / "data"), "--testlist", "scan1",
+        "--outdir", str(scene / "out_exact"), "--ndepths", "8", "8", "8",
+        "--max_h", "64", "--max_w", "96", "--num_view", "3", "--filter_method", "none",
+    ])
+    assert "sweep_engaged" not in exact
 
 
 def test_seeded_init_depends_on_the_seed_alone(scene):
