@@ -17,12 +17,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    48/32/8 + the 4-plane refine passes): max |diff| against
    1e-4 * max(1, max|plain|), kernel and plain times (median of
    CUDA-event-timed runs) beside the least time the card could take (bytes
-   over 3.35 TB/s, fp32 operations over 67 TFLOP/s: H100 SXM data sheet);
+   over 3.35 TB/s, fp32 operations over 67 TFLOP/s: H100 SXM data sheet),
+   where the samples fall;
 4. the two adjoint kernels vs their plain version (autograd of the plain
    forward) at the six cost-pass shapes of DTU training (512x640, 5 views,
    batch 2), refine fans with zero and negative depths: max |diff| against
    1e-4 * max(1, max|plain|), no gradient for projections and depths, the
-   run-to-run spread of the atomic scatter, times, bounds, atomic adds;
+   run-to-run spread of the atomic scatter, times, bounds, the scatter's
+   float4 atomic adds (issued, and taps * C/4 uncombined);
 5. the eval main path: run_test through the CLI at --preset dtu_test on a
    synthetic 864x1152, 5-view scene (eval_batch 2: three dispatches, the
    last padded), with seeded random weights.  Checks every PFM, checks that
@@ -30,6 +32,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    one batch of the same model against the same model with plain cost
    passes, and that each stage's depths lie inside the hypotheses they
    were regressed from;
+   then kernel 1 as in phase 3 on the inputs that batch's six cost passes
+   received ("inputs": "model eval");
 6. the training main path: the CLI at --preset dtu_train (512x640, 5 views,
    batch 2, fp32, Adam) on a synthetic DTU training tree: 3 train steps, a
    checkpoint, one validation batch; launch counts exactly 6 forward + 6 +
@@ -41,6 +45,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel path against the plain path beside what half an ulp of noise on
    the plain path's cost volumes does; 8 steps on one fixed batch must lower
    the loss; ms per step and peak memory;
+   then kernels 1-3 as in phases 3 and 4 on the inputs one step's six cost
+   passes received, forward and backward ("inputs": "model train");
 7. the resample kernel vs its plain version at the four resamples of each
    of the six eval cost passes (4 fan coefficients, the feature width twice,
    2*D folded planes) on the rectification coordinates of the smoke's
@@ -65,8 +71,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    every routed pass; then one batch of the epipolar model against the
    exact-kernel model (NUMERICS.json tol.epi_*) and against the same model
    with the plain versions of its kernels;
-11. a "kernels" JSON line, the card line, and the final
-   {"ok": true, "device": {...}} line.
+11. a "kernels" JSON line (sums over the passes; bounds summed per pass;
+   "model_ms" on the model's inputs; the scatter's atomic adds), the card
+   line, and the final {"ok": true, "device": {...}} line.
 
 Exits non-zero without a result when CUDA is unavailable, or when run
 outside the repository (the port is not importable).
@@ -110,6 +117,9 @@ NDEPTHS = (48, 32, 8)
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3
 PEAK_FP32_S = 67e12      # H100 SXM fp32 without tensor cores
 KERNEL_REPS, PLAIN_REPS = 20, 3
+# back-to-back launches per timed sample of a kernel (with one launch per
+# sample the wrapper's host work before a short kernel would be counted)
+KERNEL_INNER = 10
 TRAIN_H, TRAIN_W = 512, 640
 # kernel-path vs plain-path train step, under deterministic cuDNN (without
 # it cuDNN's weight-gradient kernels sum in an order that changes from run to
@@ -134,6 +144,7 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL = dict(all_parameters=1e-4, median_parameter=1e-4, worst_parameter=1e-3)
 PATH_GRAD_RTOL = dict(all_parameters=5e-3, median_parameter=1e-3, worst_parameter=1e-1)
 AB_REPS = 10
+PASS_NAMES = ("s1 main", "s1 refine", "s2 main", "s2 refine", "s3 main", "s3 refine")
 # NUMERICS.json "tol": the epipolar model against the exact model
 EPI_TOL = dict(mean_mm=0.5, p99_mm=5.0, max_mm=60.0, conf_mean=0.005)
 
@@ -146,8 +157,11 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median of `reps` CUDA-event-timed calls after one warm-up call."""
+def time_ms(fn, reps: int, inner: int = 1) -> float:
+    """Median over `reps` CUDA-event-timed samples, after one warm-up call,
+    of the ms per call of `inner` back-to-back calls.  A kernel is timed
+    with ``inner=KERNEL_INNER``: its wrapper's host work then overlaps the
+    launches before it, and only the first call's reaches the sample."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -155,10 +169,11 @@ def time_ms(fn, reps: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -212,27 +227,47 @@ def bound(row: dict) -> dict:
     return row
 
 
+def tap_stats(rel, depth, h: int, w: int) -> dict:
+    """Where these inputs sample the source images: the share of samples
+    inside the image, and the median |change| of a sample's x from one plane
+    to the next (px), over views, planes and pixels."""
+    inside, motion = [], []
+    for i in range(rel.shape[1]):
+        px, py = geometry.plane_sweep_coords(rel[:, i], depth, h, w)
+        inside.append(((px >= 0) & (px <= w - 1) & (py >= 0) & (py <= h - 1)).float().mean().item())
+        if depth.shape[1] > 1:
+            motion.append((px[:, 1:] - px[:, :-1]).abs().median().item())
+        del px, py
+    return dict(inside_share=statistics.mean(inside),
+                motion_px_per_plane=statistics.median(motion) if motion else 0.0)
+
+
+def forward_row(name: str, inputs: str, feats, rel, depth, plain_reps: int) -> dict:
+    """Kernel 1 on one pass's inputs: against its plain version, its time
+    (and the plain version's when ``plain_reps``), the bound, where the
+    samples fall."""
+    b, v, h, w, c = feats.shape
+    got = wc.warp_correlate(feats, rel, depth)
+    want = wc.warp_correlate_plain(feats, rel, depth)
+    torch.cuda.synchronize()
+    err, tol = check_close(f"{name} ({inputs}) kernel 1", got, want)
+    nbytes, flops = pass_cost(b, v, depth.shape[1], h, w, c)
+    row = dict(pass_=name, inputs=inputs, C=c, D=depth.shape[1], H=h, W=w, max_abs_err=err,
+               tol=tol, kernel_ms=time_ms(lambda: wc.warp_correlate(feats, rel, depth),
+                                          KERNEL_REPS, KERNEL_INNER))
+    if plain_reps:
+        row["plain_ms"] = time_ms(lambda: wc.warp_correlate_plain(feats, rel, depth), plain_reps)
+    row.update(bytes=nbytes, flops=flops, **tap_stats(rel, depth, h, w))
+    print("pass " + json.dumps({k.rstrip("_"): v for k, v in bound(row).items()}), flush=True)
+    return row
+
+
 def kernel_vs_plain(dev) -> list[dict]:
     """Phase 3: the forward kernel against its plain version at the six
     eval pass shapes."""
     rows = []
     for name, c, feats, rel, depth in pass_cases(dev, H, W):
-        h, w = feats.shape[2:4]
-        got = wc.warp_correlate(feats, rel, depth)
-        want = wc.warp_correlate_plain(feats, rel, depth)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = 1e-4 * max(1.0, want.abs().max().item())
-        if not (np.isfinite(err) and err <= tol):
-            raise AssertionError(f"{name}: kernel vs plain max |diff| {err} > {tol}")
-        k_ms = time_ms(lambda: wc.warp_correlate(feats, rel, depth), KERNEL_REPS)
-        p_ms = time_ms(lambda: wc.warp_correlate_plain(feats, rel, depth), PLAIN_REPS)
-        nbytes, flops = pass_cost(B, V, depth.shape[1], h, w, c)
-        row = bound(dict(pass_=name, C=c, D=depth.shape[1], H=h, W=w, max_abs_err=err,
-                         tol=tol, kernel_ms=k_ms, plain_ms=p_ms, bytes=nbytes, flops=flops))
-        print("pass " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
-        rows.append(row)
-        del got, want
+        rows.append(forward_row(name, "synthetic", feats, rel, depth, PLAIN_REPS))
     return rows
 
 
@@ -281,49 +316,106 @@ def plain_grad(feats, rel, depth, cot, wrt: str):
     return torch.autograd.grad(out, leaf, cot)[0]
 
 
+def adjoint_rows(name: str, inputs: str, feats, rel, depth, cot,
+                 plain_reps: int) -> list[dict]:
+    """Both adjoint kernels on one pass's inputs, through the
+    autograd.Function: against autograd of the plain forward, no gradient
+    for projections and depths, the run-to-run spread of the scatter, its
+    counters, times, bounds."""
+    b, v, h, w, c = feats.shape
+    d = depth.shape[1]
+    f, r, dep = (t.clone().requires_grad_() for t in (feats, rel, depth))
+    wc.warp_correlate(f, r, dep).backward(cot)
+    if r.grad is not None or dep.grad is not None:
+        raise AssertionError(f"{name}: projections or depths received a gradient")
+    got = f.grad
+    want = wc.warp_correlate_grad_plain(feats, rel, depth, cot)
+    stats = torch.zeros(2, dtype=torch.int64, device=feats.device)
+    again = wc.warp_correlate_grad_src(feats, rel, depth, cot, stats=stats)
+    torch.cuda.synchronize()
+    taps = count_taps(rel, depth, h, w)
+    costs = adjoint_cost(b, v, d, h, w, c, taps)
+    buf = torch.empty_like(feats)
+    rows = []
+    for kernel, sl, wrt, fn in (
+            ("warp_correlate_grad_ref", slice(0, 1), "ref", wc.warp_correlate_grad_ref),
+            ("warp_correlate_grad_src", slice(1, None), "src", wc.warp_correlate_grad_src)):
+        err = (got[:, sl] - want[:, sl]).abs().max().item()
+        tol = 1e-4 * max(1.0, want[:, sl].abs().max().item())
+        if not (np.isfinite(err) and err <= tol):
+            raise AssertionError(f"{name} ({inputs}) {kernel}: max |diff| {err} > {tol}")
+        row = dict(pass_=name, inputs=inputs, kernel=kernel, C=c, D=d, H=h, W=w,
+                   max_abs_err=err, tol=tol, max_abs_plain=want[:, sl].abs().max().item())
+        if wrt == "src":
+            # fp32 atomics: two runs of the same scatter differ in the last bits
+            row["spread"] = (again[:, sl] - got[:, sl]).abs().max().item()
+            if not row["spread"] <= tol:
+                raise AssertionError(f"{name}: run-to-run spread {row['spread']} > {tol}")
+            # taps * C/4: the float4 atomic adds of a scatter that combines
+            # nothing, beside what this one issued
+            row["taps"] = taps
+            row["uncombined_atomic_adds"] = taps * c // 4
+            row["global_atomic_adds"], row["cell_moves"] = stats.tolist()
+        row["kernel_ms"] = time_ms(lambda: fn(feats, rel, depth, cot, buf), KERNEL_REPS,
+                                   KERNEL_INNER)
+        if plain_reps:
+            row["plain_ms"] = time_ms(lambda: plain_grad(feats, rel, depth, cot, wrt), plain_reps)
+        row["bytes"], row["flops"] = costs[kernel]
+        print("adjoint " + json.dumps({k.rstrip("_"): v for k, v in bound(row).items()}),
+              flush=True)
+        rows.append(row)
+    return rows
+
+
 def adjoints_vs_plain(dev) -> list[dict]:
     """Phase 4: the adjoint kernels against autograd of the plain forward at
     the six train pass shapes, through the autograd.Function."""
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
     for name, c, feats, rel, depth in pass_cases(dev, TRAIN_H, TRAIN_W):
-        h, w = feats.shape[2:4]
-        d = depth.shape[1]
-        cot = torch.randn((B, d, h, w, 2), generator=gen, device=dev)
-        f, r, dep = (t.clone().requires_grad_() for t in (feats, rel, depth))
-        wc.warp_correlate(f, r, dep).backward(cot)
-        if r.grad is not None or dep.grad is not None:
-            raise AssertionError(f"{name}: projections or depths received a gradient")
-        got = f.grad
-        want = wc.warp_correlate_grad_plain(feats, rel, depth, cot)
-        again = wc.warp_correlate_grad_src(feats, rel, depth, cot)
-        torch.cuda.synchronize()
-        taps = count_taps(rel, depth, h, w)
-        costs = adjoint_cost(B, V, d, h, w, c, taps)
-        buf = torch.empty_like(feats)
-        for kernel, sl, wrt, fn in (
-                ("warp_correlate_grad_ref", slice(0, 1), "ref", wc.warp_correlate_grad_ref),
-                ("warp_correlate_grad_src", slice(1, None), "src", wc.warp_correlate_grad_src)):
-            err = (got[:, sl] - want[:, sl]).abs().max().item()
-            tol = 1e-4 * max(1.0, want[:, sl].abs().max().item())
-            if not (np.isfinite(err) and err <= tol):
-                raise AssertionError(f"{name} {kernel}: max |diff| {err} > {tol}")
-            row = dict(pass_=name, kernel=kernel, C=c, D=d, H=h, W=w, max_abs_err=err, tol=tol,
-                       max_abs_plain=want[:, sl].abs().max().item())
-            if wrt == "src":
-                # fp32 atomics: two runs of the same scatter differ in the last bits
-                row["spread"] = (again[:, sl] - got[:, sl]).abs().max().item()
-                row["scalar_atomic_adds"] = taps * c
-                row["vector_atomic_adds"] = taps * c // 4
-                if not row["spread"] <= tol:
-                    raise AssertionError(f"{name}: run-to-run spread {row['spread']} > {tol}")
-            row["kernel_ms"] = time_ms(lambda: fn(feats, rel, depth, cot, buf), KERNEL_REPS)
-            row["plain_ms"] = time_ms(lambda: plain_grad(feats, rel, depth, cot, wrt), PLAIN_REPS)
-            row["bytes"], row["flops"] = costs[kernel]
-            print("adjoint " + json.dumps({k.rstrip("_"): v for k, v in bound(row).items()}),
-                  flush=True)
-            rows.append(row)
-        del got, want, again, buf, f, r, dep, cot
+        cot = torch.randn((B, *depth.shape[1:], 2), generator=gen, device=dev)
+        rows += adjoint_rows(name, "synthetic", feats, rel, depth, cot, PLAIN_REPS)
+        del cot
+    return rows
+
+
+@contextlib.contextmanager
+def capture_calls(attr: str, into: list):
+    """Within the block ``wc.<attr>`` appends a copy of its tensor
+    arguments to ``into`` on every call, then runs as before: the inputs the
+    model's cost passes really receive."""
+    saved = getattr(wc, attr)
+
+    def recording(*args):
+        into.append(tuple(a.detach().clone() for a in args))
+        return saved(*args)
+
+    setattr(wc, attr, recording)
+    try:
+        yield
+    finally:
+        setattr(wc, attr, saved)
+
+
+def in_pass_order(captured: list) -> list:
+    """The six captured passes of one forward or backward in forward order
+    (a backward runs them in reverse): by falling C, then falling D."""
+    if len(captured) != 6:
+        raise AssertionError(f"captured {len(captured)} cost passes, expected 6")
+    return sorted(captured, key=lambda t: (-t[0].shape[-1], -t[2].shape[1]))
+
+
+def model_rows(captured: list, inputs: str) -> list[dict]:
+    """Kernels 1-3 per pass on the tensors the model's cost passes received:
+    kernel 1 on the six passes of one dtu_test batch (``inputs`` "model
+    eval"), or kernels 1, 2 and 3 on those of one dtu_train step's backward
+    ("model train")."""
+    rows = []
+    for name, args in zip(PASS_NAMES, in_pass_order(captured)):
+        with torch.inference_mode():
+            rows.append(forward_row(name, inputs, *args[:3], 0))
+        if inputs == "model train":
+            rows += adjoint_rows(name, inputs, *args, 0)
     return rows
 
 
@@ -352,9 +444,10 @@ def load_batch(cfg, dev):
     return imgs, proj, dv
 
 
-def check_batch(cfg, dev) -> dict:
+def check_batch(cfg, dev) -> tuple[dict, list]:
     """One batch of the main path: the kernel model vs the same weights with
-    plain cost passes, the hypothesis envelopes, and steady-state times."""
+    plain cost passes, the hypothesis envelopes, and steady-state times;
+    also the inputs of the kernel model's six cost passes."""
     imgs, proj, dv = load_batch(cfg, dev)
     model = build_model(cfg, dev)
     if model.warp_impl != "cuda":
@@ -365,7 +458,10 @@ def check_batch(cfg, dev) -> dict:
         with torch.inference_mode():
             return model(imgs, proj, dv)
 
-    out_k, out_p = forward("cuda"), forward("torch")
+    captured = []
+    with capture_calls("warp_correlate", captured):
+        out_k = forward("cuda")
+    out_p = forward("torch")
     torch.cuda.synchronize()
     d_err = (out_k["depth"] - out_p["depth"]).abs().max().item()
     c_err = (out_k["photometric_confidence"] - out_p["photometric_confidence"]).abs().max().item()
@@ -387,7 +483,7 @@ def check_batch(cfg, dev) -> dict:
     return dict(depth_max_abs_diff_mm=d_err, conf_max_abs_diff=c_err,
                 forward_ms_kernel=kernel_ms, forward_ms_plain=plain_ms,
                 ms_per_map_kernel=kernel_ms / B, ms_per_map_plain=plain_ms / B,
-                depth_range_mm=[out_k["depth"].min().item(), out_k["depth"].max().item()])
+                depth_range_mm=[out_k["depth"].min().item(), out_k["depth"].max().item()]), captured
 
 
 def pass_shapes():
@@ -465,9 +561,9 @@ def resample_vs_plain(dev) -> list[dict]:
             row = bound(dict(
                 pass_=name, what=what, N=n, C=ch, H=h, W=w, max_abs_err=err, tol=tol,
                 outside_share=outside, library_max_abs_diff=lib_err,
-                kernel_ms=time_ms(lambda: es.resample(img, px, py), KERNEL_REPS),
+                kernel_ms=time_ms(lambda: es.resample(img, px, py), KERNEL_REPS, KERNEL_INNER),
                 plain_ms=time_ms(lambda: es.resample_plain(img, px, py), PLAIN_REPS),
-                library_ms=time_ms(library, KERNEL_REPS),
+                library_ms=time_ms(library, KERNEL_REPS, KERNEL_INNER),
                 bytes=4 * n * (h * w * ch + 2 * h * w + h * w * ch),
                 flops=n * h * w * (8 * ch + 20)))
             print("resample " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
@@ -507,7 +603,7 @@ def sweep_vs_plain(dev) -> list[dict]:
         row = bound(dict(
             pass_=name, N=n, C=c, D=nd, H=h, W=w, max_abs_err=err, tol=tol,
             outside_share=((px < 0) | (px > w - 1)).float().mean().item(),
-            kernel_ms=time_ms(lambda: es.sweep1d(src_r, ref_r, px), KERNEL_REPS),
+            kernel_ms=time_ms(lambda: es.sweep1d(src_r, ref_r, px), KERNEL_REPS, KERNEL_INNER),
             plain_ms=time_ms(lambda: es.sweep1d_plain(src_r, ref_r, px), PLAIN_REPS),
             bytes=4 * n * (2 * h * w * c + 3 * nd * h * w),
             flops=n * nd * h * w * (5 * c + 10)))
@@ -781,10 +877,11 @@ def epipolar_path(dev, tmp: str) -> tuple[dict, dict]:
                          list(mvsnet.EPIPOLAR_REFINE_STAGES)]), launches
 
 
-def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict]:
+def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
     """Phase 6: the trainer at the full dtu_train preset through the CLI,
     resume, kernel-path vs plain-path step (printed again for ``grad_trials``
-    fresh sets of weights), and an 8-step overfit."""
+    fresh sets of weights), the inputs of one step's six backward cost
+    passes, and an 8-step overfit."""
     t0 = time.perf_counter()
     data = os.path.join(tmp, "dtu")
     synthetic.write_dtu_training_tree(data, scans=("scan1",), n_views=V, height=TRAIN_H,
@@ -900,6 +997,10 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict]:
     losses = [float(x) for x in losses]
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"8 steps on one batch did not lower the loss: {losses}")
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    captured = []
+    with capture_calls("warp_correlate_grad", captured):
+        loss_and_grads(model, "cuda")
     return dict(
         steps=summary["step"], launches=launches, cli_wall_s=wall,
         train_avg=epoch["train_avg"], val_avg=epoch["val_avg"],
@@ -910,7 +1011,71 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict]:
         grad_rel_l2_diff_yardstick=held["yardstick"],
         overfit_losses=losses,
         train_step_ms=statistics.median(s.elapsed_time(e) for s, e in events[1:]),
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), launches
+        peak_mem_gb=peak_mem_gb), launches, captured
+
+
+def report(every: list[dict], resample_rows, sweep_rows, eval_launches, train_launches,
+           epi_launches, fallback_launches) -> None:
+    """The "kernels" line, from the rows of kernels 1-3 on synthetic and
+    model inputs and the rows of kernels 4 and 5."""
+
+    def rows_of(kernel, inputs):
+        return [r for r in every if r.get("kernel", "warp_correlate") == kernel
+                and r["inputs"] == inputs]
+
+    def atomics(rows) -> dict:
+        """The scatter's counters summed over the passes of ``rows``."""
+        return {k: sum(r[k] for r in rows)
+                for k in ("uncombined_atomic_adds", "global_atomic_adds", "cell_moves")}
+
+    def kernel_entry(name, replaces, launches, rows, model=(), **extra):
+        """A kernel's sums over its passes; the bound is the sum of the
+        per-pass bounds (six launches, each bound by its own bytes or
+        operations), ``bound_by`` what bounds the larger share of it."""
+        by = {"bytes": 0.0, "operations": 0.0}
+        for r in rows:
+            by[r["bound_by"]] += r["bound_ms"]
+        library = [r["library_ms"] for r in rows if "library_ms" in r]
+        return {"name": name, "route": "cuda", "source": f"dmvsnet_tpu_torch/csrc/{name}.cu",
+                "replaces": f"dmvsnet_tpu/ops/pallas/{replaces}",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in (*rows, *model)),
+                "ms": sum(r["kernel_ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(by.values()), "bound_by": max(by, key=by.get),
+                "library_ms": sum(library) if library else None,
+                "model_ms": sum(r["kernel_ms"] for r in model) if model else None, **extra}
+
+    # ms, plain_ms, library_ms and bound_ms are sums over the six passes of
+    # one forward (eval shapes; for the resample kernel its four launches per
+    # pass) or one backward (train shapes) on the smoke's synthetic inputs;
+    # model_ms the same on the inputs of one dtu_test batch (kernel 1) or one
+    # dtu_train step (kernels 2 and 3); launches are those of the path that
+    # was driven with the counts at 0 just before it; the scatter's atomic
+    # adds are summed over the same passes
+    print(json.dumps({"kernels": [
+        kernel_entry("warp_correlate", "warp_correlate.py:147",
+                     eval_launches["warp_correlate"], rows_of("warp_correlate", "synthetic"),
+                     model=rows_of("warp_correlate", "model eval"),
+                     model_ms_train_forward=sum(r["kernel_ms"] for r in rows_of(
+                         "warp_correlate", "model train")),
+                     train_path_launches=train_launches["warp_correlate"],
+                     epipolar_path_launches=epi_launches["warp_correlate"],
+                     epipolar_fallback_case_launches=fallback_launches["warp_correlate"]),
+        kernel_entry("warp_correlate_grad_src", "warp_correlate.py:287",
+                     train_launches["warp_correlate_grad_src"],
+                     rows_of("warp_correlate_grad_src", "synthetic"),
+                     model=rows_of("warp_correlate_grad_src", "model train"),
+                     atomics=atomics(rows_of("warp_correlate_grad_src", "synthetic")),
+                     model_atomics=atomics(rows_of("warp_correlate_grad_src", "model train"))),
+        kernel_entry("warp_correlate_grad_ref", "warp_correlate.py:227",
+                     train_launches["warp_correlate_grad_ref"],
+                     rows_of("warp_correlate_grad_ref", "synthetic"),
+                     model=rows_of("warp_correlate_grad_ref", "model train")),
+        kernel_entry("resample", "epipolar_sweep.py:63", epi_launches["resample"],
+                     resample_rows),
+        kernel_entry("sweep1d", "epipolar_sweep.py:251", epi_launches["sweep1d"], sweep_rows),
+    ]}), flush=True)
 
 
 def main() -> None:
@@ -969,52 +1134,28 @@ def main() -> None:
                                  f"{eval_launches} (expected {V} and {expected})")
         check_pfms(os.path.join(tmp, "out"), V)
         cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
-        batch = check_batch(cfg, dev)
+        batch, eval_captured = check_batch(cfg, dev)
         d = summary["dispatch_seconds"]
         print("main " + json.dumps(dict(
             maps=summary["maps"], launches=eval_launches["warp_correlate"], run_test_wall_s=wall,
             dispatch_s=d, ms_per_map_after_first_dispatch=1e3 * sum(d[1:]) / (V - B), **batch)),
             flush=True)
+        # kernel 1 on the model's own cost-pass inputs
+        model = model_rows(eval_captured, "model eval")
+        del eval_captured
 
         epi, epi_launches = epipolar_path(dev, tmp)
         print("epipolar " + json.dumps(epi), flush=True)
 
-        train, train_launches = train_path(dev, tmp, grad_trials)
+        train, train_launches, train_captured = train_path(dev, tmp, grad_trials)
         print("train " + json.dumps(train), flush=True)
 
-    def kernel_entry(name, replaces, launches, rows, **extra):
-        total = bound(dict(bytes=sum(r["bytes"] for r in rows),
-                           flops=sum(r["flops"] for r in rows)))
-        library = [r["library_ms"] for r in rows if "library_ms" in r]
-        return {"name": name, "route": "cuda", "source": f"dmvsnet_tpu_torch/csrc/{name}.cu",
-                "replaces": f"dmvsnet_tpu/ops/pallas/{replaces}",
-                "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                "ms": sum(r["kernel_ms"] for r in rows),
-                "plain_ms": sum(r["plain_ms"] for r in rows),
-                "bound_ms": total["bound_ms"], "bound_by": total["bound_by"],
-                "library_ms": sum(library) if library else None, **extra}
+        # kernels 1-3 on the model's own cost-pass inputs
+        model += model_rows(train_captured, "model train")
+        del train_captured
 
-    # ms, plain_ms, library_ms and bound_ms are sums over the six passes of
-    # one forward (eval shapes; for the resample kernel its four launches per
-    # pass) or one backward (train shapes); launches are those of the path
-    # that was driven with the counts at 0 just before it
-    print(json.dumps({"kernels": [
-        kernel_entry("warp_correlate", "warp_correlate.py:147",
-                     eval_launches["warp_correlate"], rows,
-                     train_path_launches=train_launches["warp_correlate"],
-                     epipolar_path_launches=epi_launches["warp_correlate"],
-                     epipolar_fallback_case_launches=fallback["launches"]["warp_correlate"]),
-        kernel_entry("warp_correlate_grad_src", "warp_correlate.py:287",
-                     train_launches["warp_correlate_grad_src"],
-                     [r for r in adj_rows if r["kernel"] == "warp_correlate_grad_src"]),
-        kernel_entry("warp_correlate_grad_ref", "warp_correlate.py:227",
-                     train_launches["warp_correlate_grad_ref"],
-                     [r for r in adj_rows if r["kernel"] == "warp_correlate_grad_ref"]),
-        kernel_entry("resample", "epipolar_sweep.py:63", epi_launches["resample"],
-                     resample_rows),
-        kernel_entry("sweep1d", "epipolar_sweep.py:251", epi_launches["sweep1d"], sweep_rows),
-    ]}), flush=True)
+    report(rows + adj_rows + model, resample_rows, sweep_rows, eval_launches, train_launches,
+           epi_launches, fallback["launches"])
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

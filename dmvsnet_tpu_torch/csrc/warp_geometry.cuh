@@ -16,20 +16,39 @@
 
 namespace dmvs {
 
-// (m[0] x + m[1] y + m[2]) d + m[3], rounded op by op in that order
-__device__ __forceinline__ float ray(const float* m, float x, float y, float d) {
-  const float r = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 0), x), __fmul_rn(__ldg(m + 1), y)),
-                            __ldg(m + 2));
+// The ray of one relative projection row m at pixel (x, y), split as
+// r = (m[0] x + m[1] y) + m[2] once per (pixel, view) and r d + m[3] per
+// plane: each op rounded on its own in that order, so the split gives the
+// same floats whether r is kept across planes or formed anew.
+__device__ __forceinline__ float ray_base(const float* m, float x, float y) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 0), x), __fmul_rn(__ldg(m + 1), y)),
+                   __ldg(m + 2));
+}
+
+__device__ __forceinline__ float ray_at(const float* m, float r, float d) {
   return __fadd_rn(__fmul_rn(r, d), __ldg(m + 3));
+}
+
+// The three ray bases of one (pixel, view): rows 0, 1, 2 of the 3 x 4
+// projection m.
+struct Rays {
+  float r[3];
+};
+
+__device__ __forceinline__ Rays pixel_rays(const float* m, float x, float y) {
+  return Rays{{ray_base(m + 0, x, y), ray_base(m + 4, x, y), ray_base(m + 8, x, y)}};
 }
 
 // The 4 bilinear taps of one sample, in the order (x0,y0), (x0+1,y0),
 // (x0,y0+1), (x0+1,y0+1).  pix[t] = y*W + x of the tap, clamped into the
 // image so it can always be addressed; w[t] is exactly 0 for a tap outside
-// the image (zero padding), so such a tap reads or adds nothing.
+// the image (zero padding), so such a tap reads or adds nothing.  (x0, y0)
+// is the cell's corner before clamping: tap t lies at (x0 + t % 2, y0 + t / 2),
+// inside the image wherever w[t] != 0.
 struct Taps {
   float w[4];
   int pix[4];
+  int x0, y0;
 };
 
 // The taps of one bilinear sample at pixel coordinates (px, py), which are
@@ -64,18 +83,27 @@ __device__ __forceinline__ Taps bilinear_taps(float px, float py, int H, int W) 
   t.pix[1] = ya * W + xb;
   t.pix[2] = yb * W + xa;
   t.pix[3] = yb * W + xb;
+  t.x0 = x0;
+  t.y0 = y0;
   return t;
 }
 
-// m: the 12 floats (3 x 4, row major) of one relative projection.
+// m: the 12 floats (3 x 4, row major) of one relative projection, rays its
+// bases at the sample's pixel (pixel_rays).
 // p = M (x, y, 1)^T d + t, (px, py) = (p0/z, p1/z), z == 0 -> 1e-5.
-__device__ __forceinline__ Taps sample_taps(const float* m, float fx, float fy, float dep,
-                                            int H, int W) {
-  const float p0 = ray(m + 0, fx, fy, dep);
-  const float p1 = ray(m + 4, fx, fy, dep);
-  float z = ray(m + 8, fx, fy, dep);
+__device__ __forceinline__ Taps plane_taps(const float* m, const Rays& rays, float dep,
+                                           int H, int W) {
+  const float p0 = ray_at(m + 0, rays.r[0], dep);
+  const float p1 = ray_at(m + 4, rays.r[1], dep);
+  float z = ray_at(m + 8, rays.r[2], dep);
   if (z == 0.0f) z += 1e-5f;
   return bilinear_taps(__fdiv_rn(p0, z), __fdiv_rn(p1, z), H, W);
+}
+
+// The same for a sample whose rays are not kept.
+__device__ __forceinline__ Taps sample_taps(const float* m, float fx, float fy, float dep,
+                                            int H, int W) {
+  return plane_taps(m, pixel_rays(m, fx, fy), dep, H, W);
 }
 
 }  // namespace dmvs

@@ -127,16 +127,18 @@ def build() -> dict[str, ctypes._CFuncPtr]:
     return _fns
 
 
-def launch(name: str, tensors: Sequence[torch.Tensor], ints: Sequence[int]) -> None:
+def launch(name: str, tensors: Sequence[torch.Tensor | None], ints: Sequence[int]) -> None:
     """Launch kernel ``name`` on the current stream of the tensors' CUDA
-    device: the tensors' pointers, then ``ints``, then the stream.  The
-    caller has validated shapes, types and the alignment its kernel needs;
-    this checks device and contiguity, counts the launch and raises on a
-    launch error.  Does not synchronise."""
+    device: the tensors' pointers (NULL for a ``None``), then ``ints``, then
+    the stream.  The caller has validated shapes, types and the alignment
+    its kernel needs; this checks device and contiguity, counts the launch
+    and raises on a launch error.  Does not synchronise."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     for t in tensors:
+        if t is None:
+            continue
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
         if not t.is_contiguous():
@@ -145,6 +147,6 @@ def launch(name: str, tensors: Sequence[torch.Tensor], ints: Sequence[int]) -> N
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         KERNELS[name].counts[name] += 1
-        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -7,12 +7,15 @@ H100 and what its design does about that):
 
 * ``warp_correlate`` (``warp_correlate.cu``) replaces the TPU kernel
   ``dmvsnet_tpu/ops/pallas/warp_correlate.py:_make_kernel``.  One launch
-  covers a whole cost pass: every batch element, source view, plane, pixel.
+  covers a whole cost pass: every batch element, source view, plane, pixel;
+  a sample's channels lie on consecutive lanes, each lane group serves a
+  few planes.
 * ``warp_correlate_grad_ref`` (``warp_correlate_grad_ref.cu``) replaces
   ``_make_grad_ref_kernel``: the adjoint w.r.t. the reference features.
 * ``warp_correlate_grad_src`` (``warp_correlate_grad_src.cu``) replaces
   ``_make_grad_src_kernel``: the adjoint w.r.t. the source features, a
-  scatter with vector atomics.
+  scatter that sums a pixel's consecutive planes in registers while they
+  share a bilinear cell, before its atomic adds reach device memory.
 
 All three take the sampling geometry from ``csrc/warp_geometry.cuh``, so
 the adjoints see bit for bit the taps and weights of the forward.  The
@@ -38,7 +41,8 @@ from dmvsnet_tpu_torch.ops import cuda_build, warp
 CHANNELS = (8, 16, 32)
 
 # kernel name -> (source, C arguments): feats, rel, depth and the kernel's
-# remaining tensors, then B, V, D, H, W, C and the stream.  LAUNCHES counts
+# remaining tensors (the scatter's last one its counters, NULL when not
+# asked for), then B, V, D, H, W, C and the stream.  LAUNCHES counts
 # launches per kernel; a wrapper adds one where it launches its kernel and
 # nowhere else (cuda_build.reset_launches() sets every count to 0).
 _GEOMETRY = ("warp_geometry.cuh",)
@@ -46,7 +50,7 @@ LAUNCHES: dict[str, int] = cuda_build.declare({
     "warp_correlate": ("warp_correlate.cu", cuda_build.pointer_ints(4, 6), _GEOMETRY),
     "warp_correlate_grad_ref": ("warp_correlate_grad_ref.cu", cuda_build.pointer_ints(5, 6),
                                 _GEOMETRY),
-    "warp_correlate_grad_src": ("warp_correlate_grad_src.cu", cuda_build.pointer_ints(5, 6),
+    "warp_correlate_grad_src": ("warp_correlate_grad_src.cu", cuda_build.pointer_ints(6, 6),
                                 _GEOMETRY),
 })
 
@@ -137,14 +141,15 @@ def _grad_buffer(feats: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
 
 
 def _launch(name: str, feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor,
-            *rest: torch.Tensor) -> None:
+            *rest: torch.Tensor | None, out: torch.Tensor) -> None:
     """Launch kernel ``name`` on CUDA tensors: the three inputs, then the
     kernel's remaining tensors (the output; or the cotangent and the
-    gradient buffer).  Raises on what the kernel does not take."""
+    gradient buffer ``out``, and the scatter's counters or None).  Raises on
+    what the kernel does not take."""
     b, v, h, w, c = feats.shape
     if c not in CHANNELS:
         raise ValueError(f"kernel built for C in {CHANNELS}, got {c}")
-    if feats.data_ptr() % 16 or rest[-1].data_ptr() % 16:
+    if feats.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("feats and the output must be 16-byte aligned (float4 access)")
     cuda_build.launch(name, (feats, rel, depth, *rest), (b, v, depth.shape[1], h, w, c))
 
@@ -156,9 +161,11 @@ class _WarpCorrelate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, rel, depth):
         b, _, h, w, _ = feats.shape
+        if h * w >= 1 << 29:
+            raise ValueError(f"{h}x{w} pixels: the kernel packs a tap's pixel index in 29 bits")
         out = torch.empty((b, depth.shape[1], h, w, 2), dtype=torch.float32,
                           device=feats.device)
-        _launch("warp_correlate", feats, rel, depth, out)
+        _launch("warp_correlate", feats, rel, depth, out, out=out)
         ctx.save_for_backward(feats, rel, depth)
         return out
 
@@ -197,25 +204,34 @@ def warp_correlate_grad_ref(
     if feats.device.type == "cpu":
         out[:, 0].copy_(warp_correlate_grad_plain(feats, rel, depth, cot)[:, 0])
     else:
-        _launch("warp_correlate_grad_ref", feats, rel, depth, cot, out)
+        _launch("warp_correlate_grad_ref", feats, rel, depth, cot, out, out=out)
     return out
 
 
 def warp_correlate_grad_src(
     feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor, cot: torch.Tensor,
-    out: torch.Tensor | None = None,
+    out: torch.Tensor | None = None, stats: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Adjoint w.r.t. the source features: zeroes slots 1.. of the
     (B, V, H, W, C) gradient buffer ``out`` (allocated uninitialised if not
     given) and scatters into them; returns ``out``.  On the card the sums
-    are fp32 atomics, so their last bits vary from run to run."""
+    are fp32 atomics, so their last bits vary from run to run.
+
+    ``stats``, a (2,) int64 tensor on the same device, receives what a
+    launch did (added to its entries): the float4 atomic adds it issued to
+    device memory, and the times a lane's bilinear cell changed from one
+    plane to the next.  Not given, nothing is counted; CPU tensors count
+    nothing."""
     _check(feats, rel, depth, cot)
     out = _grad_buffer(feats, out)
+    if stats is not None and (stats.shape != (2,) or stats.dtype != torch.int64
+                              or stats.device != feats.device):
+        raise ValueError(f"stats must be a (2,) int64 tensor on {feats.device}")
     if feats.device.type == "cpu":
         out[:, 1:].copy_(warp_correlate_grad_plain(feats, rel, depth, cot)[:, 1:])
     else:
         out[:, 1:].zero_()
-        _launch("warp_correlate_grad_src", feats, rel, depth, cot, out)
+        _launch("warp_correlate_grad_src", feats, rel, depth, cot, out, stats, out=out)
     return out
 
 

@@ -18,6 +18,7 @@ import torch
 from dmvsnet_tpu.ops import warp as jwarp
 from dmvsnet_tpu.ops.pallas.warp_correlate import aggregate_cost_volume_pallas
 from dmvsnet_tpu.utils import synthetic as jsyn
+from dmvsnet_tpu_torch.core import geometry as tgeo
 from dmvsnet_tpu_torch.ops import warp as twarp
 from dmvsnet_tpu_torch.ops import warp_correlate as twc
 
@@ -165,3 +166,76 @@ def test_cuda_kernel_matches_plain_on_card(rng):
         torch.cuda.synchronize()
         tol = 1e-4 * max(1.0, want.abs().max().item())
         assert (got - want).abs().max().item() <= tol, c
+
+
+def _branch_fans(rng, kind, b, d, h, w):
+    """(B, D, H, W) hypotheses for the branches of the kernels: "smooth"
+    inverse-depth fans (a tile's taps move a fraction of a pixel per plane,
+    so the scatter's window holds them), "noise" white-noise depths that
+    cross zero (its boxes overflow), "outside" a plane inside the image
+    between planes at z = 0 and near 0, which project wholly outside."""
+    if kind == "smooth":
+        base = 1.0 / np.linspace(1 / 450.0, 1 / 750.0, d, dtype=np.float32)
+        ramp = np.linspace(0.0, 20.0, w, dtype=np.float32)[None, None, None, :]
+        return np.broadcast_to(base[None, :, None, None] + ramp, (b, d, h, w)).copy()
+    if kind == "noise":
+        dv = (600.0 + 400.0 * rng.normal(size=(b, d, h, w))).astype(np.float32)
+        dv[:, 0, 0, :4] = 0.0  # the z == 0 guard
+        return dv
+    planes = [np.zeros((b, h, w), np.float32), np.full((b, h, w), 1e-30, np.float32)]
+    dv = np.stack([planes[i % 2] if i % 3 else np.full((b, h, w), 550.0, np.float32)
+                   for i in range(d)], axis=1)
+    return dv.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [8, 16, 32])
+@pytest.mark.parametrize("fan", ["smooth", "noise", "outside"])
+def test_cuda_kernel_branches_on_card(rng, channels, fan):
+    """The kernel's branches against its plain version on the card: every
+    C, H and W that are not multiples of a tile, D from 1 to 7 (D = 4 and
+    plane counts the per-C plane group does not divide), fans whose taps
+    fit a window, overflow it, or leave the image; tolerance as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
+    dev = torch.device("cuda")
+    for b, v, h, w, d in ((1, 2, 37, 53, 1), (2, 5, 40, 56, 4), (2, 3, 29, 70, 5),
+                          (1, 4, 16, 40, 7)):
+        feats = torch.from_numpy(rng.normal(size=(b, v, h, w, channels)).astype(np.float32))
+        cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-5.0 * i,
+                                           angle=0.01 * i) for i in range(v)])
+        proj2 = torch.from_numpy(np.broadcast_to(cams, (b, *cams.shape)).astype(np.float32))
+        dv = torch.from_numpy(_branch_fans(rng, fan, b, d, h, w))
+        got = twc.aggregate_cost_volume(feats.to(dev), proj2.to(dev), dv.to(dev))
+        want = twc.aggregate_cost_volume(feats.to(dev), proj2.to(dev), dv.to(dev), impl="torch")
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol, (b, v, h, w, d)
+        if fan == "outside":
+            outside = [i for i in range(d) if i % 3]
+            np.testing.assert_array_equal(want[:, outside].cpu().numpy(), 0.0)
+            np.testing.assert_array_equal(got[:, outside].cpu().numpy(), 0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_a_view_subset(rng):
+    """The epipolar path's per-view fallback calls the kernel on one source
+    view of one batch element: a (1, 2, H, W, C) copy of a view subset
+    equals the plain version of the same subset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
+    dev = torch.device("cuda")
+    b, v, h, w, c, d = 2, 5, 33, 45, 16, 6
+    feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
+    cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-5.0 * i,
+                                       angle=0.01 * i) for i in range(v)])
+    proj2 = torch.from_numpy(np.stack([cams, cams]).astype(np.float32)).to(dev)
+    dv = torch.from_numpy(_branch_fans(rng, "smooth", b, d, h, w)).to(dev)
+    for bi, view in ((0, 1), (1, 3)):
+        sub = feats[bi:bi + 1, [0, view]].contiguous()
+        rel = tgeo.relative_projections(proj2[bi:bi + 1, [0, view]])
+        got = twc.warp_correlate(sub, rel, dv[bi:bi + 1])
+        want = twc.warp_correlate_plain(sub, rel, dv[bi:bi + 1])
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol, (bi, view)

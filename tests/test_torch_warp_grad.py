@@ -171,3 +171,98 @@ def test_cuda_adjoint_kernels_match_plain_on_card(rng):
         want = twc.warp_correlate_grad_plain(feats, rel, depth, cot)
         tol = 1e-4 * max(1.0, want.abs().max().item())
         assert (f.grad - want).abs().max().item() <= tol, c
+
+
+def _branch_fans(rng, kind, b, d, h, w):
+    """(B, D, H, W) hypotheses for the scatter's branches: "smooth"
+    inverse-depth fans (a tile's taps move a fraction of a pixel per plane,
+    so they combine in the window and in the register cells), "noise"
+    white-noise depths that cross zero, "outside" a plane inside the image
+    between planes at z = 0 and near 0, which project wholly outside."""
+    if kind == "smooth":
+        base = 1.0 / np.linspace(1 / 450.0, 1 / 750.0, d, dtype=np.float32)
+        ramp = np.linspace(0.0, 20.0, w, dtype=np.float32)[None, None, None, :]
+        return np.broadcast_to(base[None, :, None, None] + ramp, (b, d, h, w)).copy()
+    if kind == "noise":
+        dv = (600.0 + 400.0 * rng.normal(size=(b, d, h, w))).astype(np.float32)
+        dv[:, 0, 0, :4] = 0.0  # the z == 0 guard
+        return dv
+    planes = [np.zeros((b, h, w), np.float32), np.full((b, h, w), 1e-30, np.float32)]
+    dv = np.stack([planes[i % 2] if i % 3 else np.full((b, h, w), 550.0, np.float32)
+                   for i in range(d)], axis=1)
+    return dv.astype(np.float32)
+
+
+def _card_case(rng, c, b, v, h, w, d, fan, tx=-5.0):
+    dev = torch.device("cuda")
+    feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
+    cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=tx * i,
+                                       angle=0.01 * i) for i in range(v)])
+    rel = tgeo.relative_projections(torch.from_numpy(
+        np.broadcast_to(cams, (b, *cams.shape)).astype(np.float32)).to(dev))
+    depth = torch.from_numpy(_branch_fans(rng, fan, b, d, h, w)).to(dev)
+    cot = torch.from_numpy(rng.normal(size=(b, d, h, w, 2)).astype(np.float32)).to(dev)
+    return feats, rel, depth, cot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [8, 16, 32])
+@pytest.mark.parametrize("fan", ["smooth", "noise", "outside"])
+def test_cuda_adjoint_branches_on_card(rng, channels, fan):
+    """Both adjoint kernels against autograd of the plain forward on the
+    card, through the autograd.Function, at the scatter's branches: every
+    C, H and W that are not multiples of its tile, D from 1 to 7, fans whose
+    taps fit the window, overflow it, or leave the image.  Tolerance as
+    above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
+    for b, v, h, w, d in ((1, 2, 37, 53, 1), (2, 5, 40, 56, 4), (2, 3, 29, 70, 5),
+                          (1, 4, 16, 40, 7)):
+        feats, rel, depth, cot = _card_case(rng, channels, b, v, h, w, d, fan)
+        f = feats.clone().requires_grad_()
+        twc.warp_correlate(f, rel, depth).backward(cot)
+        want = twc.warp_correlate_grad_plain(feats, rel, depth, cot)
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (f.grad - want).abs().max().item() <= tol, (b, v, h, w, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [8, 16, 32])
+def test_cuda_scatter_counters_on_card(rng, channels):
+    """The scatter's counters: on smooth fans a lane's consecutive planes
+    share a bilinear cell, so fewer float4 atomics reach device memory than
+    half the 2 per valid tap of a scatter that combines nothing, and cells
+    change less often than planes; on white-noise depths over a wide
+    baseline nearly every plane moves the cell; with or without counters
+    the result is the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
+    for fan, tx, (b, v, h, w, d) in (("smooth", -5.0, (2, 5, 40, 72, 8)),
+                                     ("noise", -40.0, (1, 3, 24, 256, 4))):
+        feats, rel, depth, cot = _card_case(rng, channels, b, v, h, w, d, fan, tx=tx)
+        stats = torch.zeros(2, dtype=torch.int64, device=feats.device)
+        got = twc.warp_correlate_grad_src(feats, rel, depth, cot, stats=stats)
+        want = twc.warp_correlate_grad_plain(feats, rel, depth, cot)
+        torch.cuda.synchronize()
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got[:, 1:] - want[:, 1:]).abs().max().item() <= tol, fan
+        atomics, moves = stats.tolist()
+        lane_planes = b * (v - 1) * h * w * (channels // 8) * (d - 1)
+        if fan == "smooth":
+            reached = int((want[:, 1:] != 0).any(-1).sum())  # source pixels reached
+            uncombined = b * d * h * w * (v - 1) * 4 * channels // 4  # at most
+            assert reached * channels // 4 <= atomics < uncombined // 2, stats
+            assert 0 < moves < lane_planes // 2, stats
+        else:
+            assert moves > lane_planes // 2, stats
+
+
+def test_scatter_counters_are_checked(rng):
+    feats, proj2, dv, cot = _case(rng, 8, 3, b=1, h=12, w=20, d=2)
+    f, depth, ct = (torch.from_numpy(x) for x in (feats, dv, cot))
+    rel = tgeo.relative_projections(torch.from_numpy(proj2))
+    with pytest.raises(ValueError, match="stats must be"):
+        twc.warp_correlate_grad_src(f, rel, depth, ct, stats=torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="stats must be"):
+        twc.warp_correlate_grad_src(f, rel, depth, ct, stats=torch.zeros(2))
