@@ -71,9 +71,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    every routed pass; then one batch of the epipolar model against the
    exact-kernel model (NUMERICS.json tol.epi_*) and against the same model
    with the plain versions of its kernels;
+   then kernels 4 and 5 as in phases 7 and 8 on the inputs that one batch
+   of the all-routed epipolar model gave them: the four resamples and the
+   sweep of each of its six passes ("inputs": "model eval");
 11. a "kernels" JSON line (sums over the passes; bounds summed per pass;
-   "model_ms" on the model's inputs; the scatter's atomic adds), the card
-   line, and the final {"ok": true, "device": {...}} line.
+   "model_ms" on the model's inputs, for all five kernels; the scatter's
+   atomic adds), the card line, and the final {"ok": true, "device": {...}}
+   line.
 
 Exits non-zero without a result when CUDA is unavailable, or when run
 outside the repository (the port is not importable).
@@ -380,21 +384,22 @@ def adjoints_vs_plain(dev) -> list[dict]:
 
 
 @contextlib.contextmanager
-def capture_calls(attr: str, into: list):
-    """Within the block ``wc.<attr>`` appends a copy of its tensor
+def capture_calls(module, attr: str, into: list):
+    """Within the block ``module.<attr>`` appends a copy of its tensor
     arguments to ``into`` on every call, then runs as before: the inputs the
-    model's cost passes really receive."""
-    saved = getattr(wc, attr)
+    model's cost passes (or the kernels of its epipolar passes) really
+    receive."""
+    saved = getattr(module, attr)
 
     def recording(*args):
         into.append(tuple(a.detach().clone() for a in args))
         return saved(*args)
 
-    setattr(wc, attr, recording)
+    setattr(module, attr, recording)
     try:
         yield
     finally:
-        setattr(wc, attr, saved)
+        setattr(module, attr, saved)
 
 
 def in_pass_order(captured: list) -> list:
@@ -459,7 +464,7 @@ def check_batch(cfg, dev) -> tuple[dict, list]:
             return model(imgs, proj, dv)
 
     captured = []
-    with capture_calls("warp_correlate", captured):
+    with capture_calls(wc, "warp_correlate", captured):
         out_k = forward("cuda")
     out_p = forward("torch")
     torch.cuda.synchronize()
@@ -528,11 +533,45 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float
     return err, tol
 
 
+def resample_row(name: str, what: str, inputs: str, img, px, py, plain_reps: int) -> dict:
+    """Kernel 4 on one resample's inputs: against its plain version, its
+    time, the bound; with ``plain_reps`` also the plain version's time and
+    F.grid_sample's (the library call: NCHW input and normalised
+    coordinates made beforehand; timed here, used nowhere in the port)."""
+    n, h, w, ch = img.shape
+    got = es.resample(img, px, py)
+    want = es.resample_plain(img, px, py)
+    torch.cuda.synchronize()
+    err, tol = check_close(f"{name} ({inputs}) resample {what}", got, want)
+    row = dict(kernel="resample", pass_=name, inputs=inputs, what=what, N=n, C=ch, H=h, W=w,
+               max_abs_err=err, tol=tol,
+               outside_share=((px < 0) | (px > w - 1) | (py < 0) | (py > h - 1)).float().mean().item())
+    if plain_reps:
+        nchw = img.permute(0, 3, 1, 2).contiguous()
+        grid = torch.stack([2.0 * px / (w - 1) - 1.0, 2.0 * py / (h - 1) - 1.0], dim=-1)
+
+        def library():
+            return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        row["library_max_abs_diff"] = (library().permute(0, 2, 3, 1) - want).abs().max().item()
+    del got, want
+    row["kernel_ms"] = time_ms(lambda: es.resample(img, px, py), KERNEL_REPS, KERNEL_INNER)
+    if plain_reps:
+        row["plain_ms"] = time_ms(lambda: es.resample_plain(img, px, py), plain_reps)
+        row["library_ms"] = time_ms(library, KERNEL_REPS, KERNEL_INNER)
+        del nchw, grid
+    row.update(bytes=4 * n * (h * w * ch + 2 * h * w + h * w * ch), flops=n * h * w * (8 * ch + 20))
+    row = bound(row)
+    print("resample " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
+    return row
+
+
 def resample_vs_plain(dev) -> list[dict]:
     """Phase 7: the resample kernel against its plain version and beside
     F.grid_sample at the four resamples of each eval cost pass."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    rows, any_outside = [], False
+    rows = []
     for s, name, c, nd, h, w in pass_shapes():
         n = B * (V - 1)
         _, rect, _ = pair_geometry(dev, s, h, w)
@@ -542,37 +581,35 @@ def resample_vs_plain(dev) -> list[dict]:
         for what, ch, px, py in (("coeffs", 4, rxx, rxy), ("ref", c, rxx, rxy),
                                  ("src", c, sxx, sxy), ("unrect", 2 * nd, ux, uy)):
             img = torch.randn((n, h, w, ch), generator=gen, device=dev)
-            px, py = px.contiguous(), py.contiguous()
-            got = es.resample(img, px, py)
-            want = es.resample_plain(img, px, py)
-            torch.cuda.synchronize()
-            err, tol = check_close(f"{name} resample {what}", got, want)
-            outside = ((px < 0) | (px > w - 1) | (py < 0) | (py > h - 1)).float().mean().item()
-            any_outside |= outside > 0
-            # the library call: NCHW input and normalised coordinates made beforehand
-            nchw = img.permute(0, 3, 1, 2).contiguous()
-            grid = torch.stack([2.0 * px / (w - 1) - 1.0, 2.0 * py / (h - 1) - 1.0], dim=-1)
-
-            def library():
-                return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
-                                     align_corners=True)
-
-            lib_err = (library().permute(0, 2, 3, 1) - want).abs().max().item()
-            row = bound(dict(
-                pass_=name, what=what, N=n, C=ch, H=h, W=w, max_abs_err=err, tol=tol,
-                outside_share=outside, library_max_abs_diff=lib_err,
-                kernel_ms=time_ms(lambda: es.resample(img, px, py), KERNEL_REPS, KERNEL_INNER),
-                plain_ms=time_ms(lambda: es.resample_plain(img, px, py), PLAIN_REPS),
-                library_ms=time_ms(library, KERNEL_REPS, KERNEL_INNER),
-                bytes=4 * n * (h * w * ch + 2 * h * w + h * w * ch),
-                flops=n * h * w * (8 * ch + 20)))
-            print("resample " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
-            rows.append(row)
-            del img, got, want, nchw, grid
+            rows.append(resample_row(name, what, "synthetic", img, px.contiguous(),
+                                     py.contiguous(), PLAIN_REPS))
+            del img
         torch.cuda.empty_cache()
-    if not any_outside:
+    if not any(r["outside_share"] > 0 for r in rows):
         raise AssertionError("no resample coordinate left the image: zero padding untested")
     return rows
+
+
+def sweep_row(name: str, inputs: str, src_r, ref_r, px, plain_reps: int) -> dict:
+    """Kernel 5 on one pass's inputs: against its plain version, its time
+    (and the plain version's when ``plain_reps``), the bound."""
+    n, h, w, c = src_r.shape
+    nd = px.shape[1]
+    got = es.sweep1d(src_r, ref_r, px)
+    want = es.sweep1d_plain(src_r, ref_r, px)
+    torch.cuda.synchronize()
+    err, tol = check_close(f"{name} ({inputs}) sweep1d", got, want)
+    del got, want
+    row = dict(kernel="sweep1d", pass_=name, inputs=inputs, N=n, C=c, D=nd, H=h, W=w,
+               max_abs_err=err, tol=tol,
+               outside_share=((px < 0) | (px > w - 1)).float().mean().item(),
+               kernel_ms=time_ms(lambda: es.sweep1d(src_r, ref_r, px), KERNEL_REPS, KERNEL_INNER))
+    if plain_reps:
+        row["plain_ms"] = time_ms(lambda: es.sweep1d_plain(src_r, ref_r, px), plain_reps)
+    row.update(bytes=4 * n * (2 * h * w * c + 3 * nd * h * w), flops=n * nd * h * w * (5 * c + 10))
+    row = bound(row)
+    print("sweep1d " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
+    return row
 
 
 def sweep_vs_plain(dev) -> list[dict]:
@@ -595,22 +632,28 @@ def sweep_vs_plain(dev) -> list[dict]:
                                             epipolar.rect_grid_coords(rect.h_ref, h, w)))
         px = es._fan_px(rect, coeffs, [not refine] * n, nd, h, w).contiguous()
         src_r, ref_r = (torch.randn((n, h, w, c), generator=gen, device=dev) for _ in range(2))
-        got = es.sweep1d(src_r, ref_r, px)
-        want = es.sweep1d_plain(src_r, ref_r, px)
-        torch.cuda.synchronize()
-        err, tol = check_close(f"{name} sweep1d", got, want)
-        del got, want
-        row = bound(dict(
-            pass_=name, N=n, C=c, D=nd, H=h, W=w, max_abs_err=err, tol=tol,
-            outside_share=((px < 0) | (px > w - 1)).float().mean().item(),
-            kernel_ms=time_ms(lambda: es.sweep1d(src_r, ref_r, px), KERNEL_REPS, KERNEL_INNER),
-            plain_ms=time_ms(lambda: es.sweep1d_plain(src_r, ref_r, px), PLAIN_REPS),
-            bytes=4 * n * (2 * h * w * c + 3 * nd * h * w),
-            flops=n * nd * h * w * (5 * c + 10)))
-        print("sweep1d " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
-        rows.append(row)
+        rows.append(sweep_row(name, "synthetic", src_r, ref_r, px, PLAIN_REPS))
         del src_r, ref_r, px, coeffs, coeffs0, dv
         torch.cuda.empty_cache()
+    return rows
+
+
+def epipolar_model_rows(resamples: list, sweeps: list) -> list[dict]:
+    """Kernels 4 and 5 as in phases 7 and 8 on the tensors that one batch
+    of the all-routed epipolar model gave them (``inputs`` "model eval"):
+    per routed pass its four resamples (fan coefficients, reference,
+    source, un-rectify) and its sweep, in the order the pass makes them."""
+    if len(sweeps) != len(PASS_NAMES) or len(resamples) != 4 * len(sweeps):
+        raise AssertionError(f"captured {len(resamples)} resamples and {len(sweeps)} sweeps, "
+                             f"expected 24 and 6")
+    order = sorted(range(len(sweeps)), key=lambda i: (-sweeps[i][0].shape[-1],
+                                                      -sweeps[i][2].shape[1]))
+    rows = []
+    with torch.inference_mode():
+        for j, i in enumerate(order):
+            for what, args in zip(("coeffs", "ref", "src", "unrect"), resamples[4 * i:4 * i + 4]):
+                rows.append(resample_row(PASS_NAMES[j], what, "model eval", *args, 0))
+            rows.append(sweep_row(PASS_NAMES[j], "model eval", *sweeps[i], 0))
     return rows
 
 
@@ -800,10 +843,11 @@ def rectification_on_the_card():
         es._host_gates = saved
 
 
-def epipolar_path(dev, tmp: str) -> tuple[dict, dict]:
+def epipolar_path(dev, tmp: str) -> tuple[dict, dict, list]:
     """Phase 10: the CLI with --warp_impl epipolar at the full dtu_test
     preset with all six passes routed to the sweep, then one batch of that
-    model against the exact-kernel model and against its plain versions."""
+    model against the exact-kernel model and against its plain versions,
+    and the inputs its resample and sweep kernels received in that batch."""
     argv = ["--test", "--preset", "dtu_test", "--datapath", os.path.join(tmp, "data"),
             "--testlist", "scan1", "--outdir", os.path.join(tmp, "out_epipolar"),
             "--filter_method", "none", "--eval_batch", str(B), "--warp_impl", "epipolar"]
@@ -859,6 +903,9 @@ def epipolar_path(dev, tmp: str) -> tuple[dict, dict]:
         raise AssertionError(f"epipolar kernels vs plain versions: depth {d_err} mm, conf "
                              f"{c_err}, flags equal {flags_equal}")
     del out_p
+    resamples, sweeps = [], []
+    with capture_calls(es, "resample", resamples), capture_calls(es, "sweep1d", sweeps):
+        forward("epipolar")
     routed_ms = time_ms(lambda: forward("epipolar"), 5)
     exact_ms = time_ms(lambda: forward("cuda"), 5)
     model.epipolar_main_stages = mvsnet.EPIPOLAR_MAIN_STAGES
@@ -874,7 +921,7 @@ def epipolar_path(dev, tmp: str) -> tuple[dict, dict]:
         forward_ms_all_six_routed=routed_ms, forward_ms_exact=exact_ms,
         forward_ms_default_routing=default_ms,
         default_routing=[list(mvsnet.EPIPOLAR_MAIN_STAGES),
-                         list(mvsnet.EPIPOLAR_REFINE_STAGES)]), launches
+                         list(mvsnet.EPIPOLAR_REFINE_STAGES)]), launches, (resamples, sweeps)
 
 
 def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
@@ -999,7 +1046,7 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
         raise AssertionError(f"8 steps on one batch did not lower the loss: {losses}")
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
     captured = []
-    with capture_calls("warp_correlate_grad", captured):
+    with capture_calls(wc, "warp_correlate_grad", captured):
         loss_and_grads(model, "cuda")
     return dict(
         steps=summary["step"], launches=launches, cli_wall_s=wall,
@@ -1014,10 +1061,10 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
         peak_mem_gb=peak_mem_gb), launches, captured
 
 
-def report(every: list[dict], resample_rows, sweep_rows, eval_launches, train_launches,
-           epi_launches, fallback_launches) -> None:
-    """The "kernels" line, from the rows of kernels 1-3 on synthetic and
-    model inputs and the rows of kernels 4 and 5."""
+def report(every: list[dict], eval_launches, train_launches, epi_launches,
+           fallback_launches) -> None:
+    """The "kernels" line, from the rows of the five kernels on synthetic
+    and model inputs."""
 
     def rows_of(kernel, inputs):
         return [r for r in every if r.get("kernel", "warp_correlate") == kernel
@@ -1049,8 +1096,9 @@ def report(every: list[dict], resample_rows, sweep_rows, eval_launches, train_la
     # ms, plain_ms, library_ms and bound_ms are sums over the six passes of
     # one forward (eval shapes; for the resample kernel its four launches per
     # pass) or one backward (train shapes) on the smoke's synthetic inputs;
-    # model_ms the same on the inputs of one dtu_test batch (kernel 1) or one
-    # dtu_train step (kernels 2 and 3); launches are those of the path that
+    # model_ms the same on the inputs of one dtu_test batch (kernel 1), one
+    # dtu_train step (kernels 2 and 3) or one dtu_test batch of the epipolar
+    # model with all six passes routed (kernels 4 and 5); launches are those of the path that
     # was driven with the counts at 0 just before it; the scatter's atomic
     # adds are summed over the same passes
     print(json.dumps({"kernels": [
@@ -1073,8 +1121,9 @@ def report(every: list[dict], resample_rows, sweep_rows, eval_launches, train_la
                      rows_of("warp_correlate_grad_ref", "synthetic"),
                      model=rows_of("warp_correlate_grad_ref", "model train")),
         kernel_entry("resample", "epipolar_sweep.py:63", epi_launches["resample"],
-                     resample_rows),
-        kernel_entry("sweep1d", "epipolar_sweep.py:251", epi_launches["sweep1d"], sweep_rows),
+                     rows_of("resample", "synthetic"), model=rows_of("resample", "model eval")),
+        kernel_entry("sweep1d", "epipolar_sweep.py:251", epi_launches["sweep1d"],
+                     rows_of("sweep1d", "synthetic"), model=rows_of("sweep1d", "model eval")),
     ]}), flush=True)
 
 
@@ -1144,8 +1193,11 @@ def main() -> None:
         model = model_rows(eval_captured, "model eval")
         del eval_captured
 
-        epi, epi_launches = epipolar_path(dev, tmp)
+        epi, epi_launches, (resamples, sweeps) = epipolar_path(dev, tmp)
         print("epipolar " + json.dumps(epi), flush=True)
+        # kernels 4 and 5 on the epipolar model's own inputs
+        model += epipolar_model_rows(resamples, sweeps)
+        del resamples, sweeps
 
         train, train_launches, train_captured = train_path(dev, tmp, grad_trials)
         print("train " + json.dumps(train), flush=True)
@@ -1154,7 +1206,7 @@ def main() -> None:
         model += model_rows(train_captured, "model train")
         del train_captured
 
-    report(rows + adj_rows + model, resample_rows, sweep_rows, eval_launches, train_launches,
+    report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
            epi_launches, fallback["launches"])
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

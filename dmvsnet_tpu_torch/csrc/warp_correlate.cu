@@ -28,7 +28,7 @@
 // and re-formed the ray R (x, y, 1)^T in every plane's thread.
 //
 // Design: a sample's C channels lie on L = C/4 consecutive lanes (a lane
-// group), one float4 each, as in the reference-gradient kernel, so a
+// group), one float4 each, so a
 // warp-wide tap load reads 32/L whole pixels of C contiguous floats.  Lane
 // groups are consecutive pixels along x, whose taps lie next to each other
 // in the source.  Each group owns P consecutive planes (a per-C constant;
@@ -37,7 +37,8 @@
 // group form the geometry of different planes (the ray bases once, then
 // one plane each while P <= L) and pass each plane's 4 weights and packed
 // tap pixels to the others with __shfl_sync, instead of all L lanes forming
-// the same floats.  A plane whose taps fall in the previous plane's cell
+// the same floats (dmvs::form_group_taps / group_taps in warp_geometry.cuh,
+// shared with the reference-gradient kernel).  A plane whose taps fall in the previous plane's cell
 // reuses its loads.  The group sums of a plane are kept per lane over all
 // views and reduced across the L lanes with __shfl_xor_sync once; one lane
 // per plane writes the float2.  Source taps are read through L1 (no
@@ -57,6 +58,13 @@ template <int C> struct Planes;
 template <> struct Planes<8> { static constexpr int P = 4; };
 template <> struct Planes<16> { static constexpr int P = 8; };
 template <> struct Planes<32> { static constexpr int P = 8; };
+
+// e0 w0 + e1 w1 + e2 w2 + e3 w3, rounded as ((e1 w1 + e0 w0) + e2 w2) + e3 w3
+// with each step after the first a fused multiply-add
+__device__ __forceinline__ float lerp4(float e0, float e1, float e2, float e3, float w0,
+                                       float w1, float w2, float w3) {
+  return __fmaf_rn(e3, w3, __fmaf_rn(e2, w2, __fmaf_rn(e0, w0, __fmul_rn(e1, w1))));
+}
 
 template <int C, int P>
 __global__ void __launch_bounds__(256) warp_correlate_kernel(
@@ -103,17 +111,8 @@ __global__ void __launch_bounds__(256) warp_correlate_kernel(
     const dmvs::Rays rays = dmvs::pixel_rays(m, fx, fy);
     // coordinates and tap weights round exactly as the plain version's
     // separate elementwise ops do (warp_geometry.cuh); a tap outside the
-    // image reads a border pixel with weight 0.  The 4 tap pixels travel
-    // as (pix[0] << 2) | (pix[1] - pix[0]) << 1 | (pix[2] != pix[0]).
-    float w[Q][4];
-    int code[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const dmvs::Taps tp = dmvs::plane_taps(m, rays, dep[q], H, W);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[q][j] = tp.w[j];
-      code[q] = (tp.pix[0] << 2) | ((tp.pix[1] - tp.pix[0]) << 1) | (tp.pix[2] != tp.pix[0]);
-    }
+    // image reads a border pixel with weight 0
+    const dmvs::GroupTaps<Q> geo = dmvs::form_group_taps<Q>(m, rays, dep, H, W);
     const float4* src = reinterpret_cast<const float4*>(feats + ((long long)b * V + v) * hw * C) + k;
     // a plane whose taps fall in the previous plane's cell reuses its loads
     int held = -1;
@@ -121,27 +120,27 @@ __global__ void __launch_bounds__(256) warp_correlate_kernel(
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       // plane p's geometry from lane p % L of the group
-      const float w0 = __shfl_sync(0xffffffffu, w[p / L][0], p % L, L);
-      const float w1 = __shfl_sync(0xffffffffu, w[p / L][1], p % L, L);
-      const float w2 = __shfl_sync(0xffffffffu, w[p / L][2], p % L, L);
-      const float w3 = __shfl_sync(0xffffffffu, w[p / L][3], p % L, L);
-      const int c = __shfl_sync(0xffffffffu, code[p / L], p % L, L);
+      const dmvs::PackedTaps tp = dmvs::group_taps<L>(geo, p);
+      const float w0 = tp.w[0], w1 = tp.w[1], w2 = tp.w[2], w3 = tp.w[3];
       if (d0 + p < D) {
-        if (c != held) {
-          const long long p0 = c >> 2, p1 = p0 + ((c >> 1) & 1);
-          const long long p2 = p0 + (c & 1) * (long long)W, p3 = p2 + ((c >> 1) & 1);
-          e0 = __ldg(src + p0 * L);
-          e1 = __ldg(src + p1 * L);
-          e2 = __ldg(src + p2 * L);
-          e3 = __ldg(src + p3 * L);
-          held = c;
+        if (tp.code != held) {
+          long long pix[4];
+          dmvs::tap_pixels(tp.code, W, pix);
+          e0 = __ldg(src + pix[0] * L);
+          e1 = __ldg(src + pix[1] * L);
+          e2 = __ldg(src + pix[2] * L);
+          e3 = __ldg(src + pix[3] * L);
+          held = tp.code;
         }
-        const float q0 = e0.x * w0 + e1.x * w1 + e2.x * w2 + e3.x * w3;  // channel 4k   (group 0)
-        const float q1 = e0.y * w0 + e1.y * w1 + e2.y * w2 + e3.y * w3;  // channel 4k+1 (group 1)
-        const float q2 = e0.z * w0 + e1.z * w1 + e2.z * w2 + e3.z * w3;  // channel 4k+2 (group 0)
-        const float q3 = e0.w * w0 + e1.w * w1 + e2.w * w2 + e3.w * w3;  // channel 4k+3 (group 1)
-        a0[p] += q0 * r.x + q2 * r.z;
-        a1[p] += q1 * r.y + q3 * r.w;
+        // the roundings are written out (the FMAs nvcc chose for this
+        // kernel's first lane-group build), so that code moving around
+        // these lines cannot change the kernel's output bits
+        const float q0 = lerp4(e0.x, e1.x, e2.x, e3.x, w0, w1, w2, w3);  // channel 4k   (group 0)
+        const float q1 = lerp4(e0.y, e1.y, e2.y, e3.y, w0, w1, w2, w3);  // channel 4k+1 (group 1)
+        const float q2 = lerp4(e0.z, e1.z, e2.z, e3.z, w0, w1, w2, w3);  // channel 4k+2 (group 0)
+        const float q3 = lerp4(e0.w, e1.w, e2.w, e3.w, w0, w1, w2, w3);  // channel 4k+3 (group 1)
+        a0[p] = __fadd_rn(a0[p], __fmaf_rn(q2, r.z, __fmul_rn(q0, r.x)));
+        a1[p] = __fadd_rn(a1[p], __fmaf_rn(q3, r.w, __fmul_rn(q1, r.y)));
       }
     }
   }

@@ -1,6 +1,7 @@
 // Plane-sweep sampling geometry shared by the warp-correlate forward kernel
 // and its two adjoint kernels; the bilinear taps also serve the resample
-// kernel.
+// kernel, and the lane-group broadcast of a sample's taps (below) serves the
+// forward and the reference-gradient kernels.
 //
 // The three kernels must agree bit for bit on where a (pixel, plane, view)
 // samples the source image and with which bilinear weights: the adjoints
@@ -104,6 +105,66 @@ __device__ __forceinline__ Taps plane_taps(const float* m, const Rays& rays, flo
 __device__ __forceinline__ Taps sample_taps(const float* m, float fx, float fy, float dep,
                                             int H, int W) {
   return plane_taps(m, pixel_rays(m, fx, fy), dep, H, W);
+}
+
+// ---------------------------------------------------------------------------
+// Geometry shared across a lane group.  A sample's C channels lie on L
+// consecutive lanes (one float4 each) and all L lanes need the same taps.
+// Instead of each lane forming them, lane k of the group forms the taps of
+// planes k, k + L, ..., k + (Q-1) L of a run of P planes and passes each
+// plane's 4 weights and packed tap pixels to the others with __shfl_sync.
+// ---------------------------------------------------------------------------
+
+// The taps of one sample as they travel between lanes: the 4 weights and
+// the 4 tap pixels packed into one int,
+//   (pix[0] << 2) | (pix[1] - pix[0]) << 1 | (pix[2] != pix[0]),
+// which needs H*W < 2^29 (the wrappers refuse larger images).
+struct PackedTaps {
+  float w[4];
+  int code;
+};
+
+// What lane k of a group formed: the taps of its Q planes.
+template <int Q>
+struct GroupTaps {
+  float w[Q][4];
+  int code[Q];
+};
+
+// Lane k's part: dep[q] is the depth of plane q*L + k of the run (any
+// finite value where that plane does not exist; its taps go unused).
+template <int Q>
+__device__ __forceinline__ GroupTaps<Q> form_group_taps(const float* m, const Rays& rays,
+                                                        const float (&dep)[Q], int H, int W) {
+  GroupTaps<Q> g;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const Taps tp = plane_taps(m, rays, dep[q], H, W);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g.w[q][j] = tp.w[j];
+    g.code[q] = (tp.pix[0] << 2) | ((tp.pix[1] - tp.pix[0]) << 1) | (tp.pix[2] != tp.pix[0]);
+  }
+  return g;
+}
+
+// Plane p's taps from lane p % L of the group.  Every lane of the warp
+// must call it with the same p (a full-warp shuffle); p is a constant of
+// an unrolled loop, so g stays in registers.
+template <int L, int Q>
+__device__ __forceinline__ PackedTaps group_taps(const GroupTaps<Q>& g, int p) {
+  PackedTaps t;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t.w[j] = __shfl_sync(0xffffffffu, g.w[p / L][j], p % L, L);
+  t.code = __shfl_sync(0xffffffffu, g.code[p / L], p % L, L);
+  return t;
+}
+
+// The 4 tap pixels (y*W + x) of a packed code, in the order of Taps.pix.
+__device__ __forceinline__ void tap_pixels(int c, int W, long long (&pix)[4]) {
+  pix[0] = c >> 2;
+  pix[1] = pix[0] + ((c >> 1) & 1);
+  pix[2] = pix[0] + (c & 1) * (long long)W;
+  pix[3] = pix[2] + ((c >> 1) & 1);
 }
 
 }  // namespace dmvs

@@ -11,7 +11,8 @@ H100 and what its design does about that):
   a sample's channels lie on consecutive lanes, each lane group serves a
   few planes.
 * ``warp_correlate_grad_ref`` (``warp_correlate_grad_ref.cu``) replaces
-  ``_make_grad_ref_kernel``: the adjoint w.r.t. the reference features.
+  ``_make_grad_ref_kernel``: the adjoint w.r.t. the reference features, a
+  gather whose lane groups share the geometry as the forward's do.
 * ``warp_correlate_grad_src`` (``warp_correlate_grad_src.cu``) replaces
   ``_make_grad_src_kernel``: the adjoint w.r.t. the source features, a
   scatter that sums a pixel's consecutive planes in registers while they
@@ -140,6 +141,13 @@ def _grad_buffer(feats: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
     return out
 
 
+def _check_tap_code(h: int, w: int) -> None:
+    """Kernels 1 and 3 pass a tap's pixel index shifted left by 2 between
+    lanes in an int: refuse H*W >= 2^29 before anything is allocated."""
+    if h * w >= 1 << 29:
+        raise ValueError(f"{h}x{w} pixels: the kernel packs a tap's pixel index in 29 bits")
+
+
 def _launch(name: str, feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor,
             *rest: torch.Tensor | None, out: torch.Tensor) -> None:
     """Launch kernel ``name`` on CUDA tensors: the three inputs, then the
@@ -161,8 +169,7 @@ class _WarpCorrelate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, rel, depth):
         b, _, h, w, _ = feats.shape
-        if h * w >= 1 << 29:
-            raise ValueError(f"{h}x{w} pixels: the kernel packs a tap's pixel index in 29 bits")
+        _check_tap_code(h, w)
         out = torch.empty((b, depth.shape[1], h, w, 2), dtype=torch.float32,
                           device=feats.device)
         _launch("warp_correlate", feats, rel, depth, out, out=out)
@@ -200,6 +207,8 @@ def warp_correlate_grad_ref(
     (B, V, H, W, C) gradient buffer ``out`` (allocated uninitialised if not
     given); returns ``out``.  Contract as in warp_correlate_grad_plain."""
     _check(feats, rel, depth, cot)
+    if feats.device.type != "cpu":
+        _check_tap_code(*feats.shape[2:4])
     out = _grad_buffer(feats, out)
     if feats.device.type == "cpu":
         out[:, 0].copy_(warp_correlate_grad_plain(feats, rel, depth, cot)[:, 0])

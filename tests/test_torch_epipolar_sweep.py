@@ -322,8 +322,12 @@ def test_an_input_that_requires_a_gradient_raises(rng):
 def test_cuda_resample_and_sweep1d_match_plain_on_card(rng):
     """Both CUDA kernels vs their plain versions on the card: every channel
     width of the features, 4 coefficient channels and 12 folded ones for the
-    resample, coordinates that leave the image.  Tolerance 1e-4 * max(1,
-    max|plain|): same taps and weights, sums with FMAs in another order."""
+    resample, coordinates that leave the image.  The sweep also at its
+    design's edges: W that no warp's span of pixels divides, D = 1 and 7
+    (runs of planes with a ragged tail), N = 1, and fans that move slowly
+    across the whole row and off both ends of it (the loads a plane reuses
+    from the previous one).  Tolerance 1e-4 * max(1, max|plain|): same taps
+    and weights, sums with FMAs in another order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain versions")
     dev = torch.device("cuda")
@@ -338,14 +342,30 @@ def test_cuda_resample_and_sweep1d_match_plain_on_card(rng):
         torch.cuda.synchronize()
         assert tes.LAUNCHES["resample"] == before["resample"] + 1
         assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item()), c
-    for c in twc.CHANNELS:
-        src_r, ref_r = (torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32)).to(dev)
-                        for _ in range(2))
-        before = dict(tes.LAUNCHES)
-        got = tes.sweep1d(src_r, ref_r, px)
-        want = tes.sweep1d_plain(src_r, ref_r, px)
-        torch.cuda.synchronize()
-        assert tes.LAUNCHES["sweep1d"] == before["sweep1d"] + 1
-        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item()), c
+
     with pytest.raises(ValueError, match="kernel built for C"):
         tes.sweep1d(img[..., :4].contiguous(), img[..., :4].contiguous(), px)
+
+    def fans(n, d, h, w):
+        """White noise over [-4, W+3], and per pixel a fan that moves
+        monotonically from left of the row to right of it (under a column
+        a plane at D = 48)."""
+        noise = rng.uniform(-4, w + 3, (n, d, h, w))
+        start = rng.uniform(-3.0, 0.5 * w if d > 1 else w + 2.0, (n, 1, h, w))
+        step = (w + 2.5 - start) / max(d - 1, 1) * rng.uniform(0.3, 1.0, (n, 1, h, w))
+        slow = start + step * np.arange(d)[None, :, None, None]
+        return [torch.from_numpy(f.astype(np.float32)).to(dev) for f in (noise, slow)]
+
+    for n, h, w, d in ((n, h, w, d), (1, 7, 57, 1), (1, 9, 61, 7), (2, 5, 37, 48)):
+        for c in twc.CHANNELS:
+            src_r, ref_r = (torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32))
+                            .to(dev) for _ in range(2))
+            for px in fans(n, d, h, w):
+                before = dict(tes.LAUNCHES)
+                got = tes.sweep1d(src_r, ref_r, px)
+                want = tes.sweep1d_plain(src_r, ref_r, px)
+                torch.cuda.synchronize()
+                assert tes.LAUNCHES["sweep1d"] == before["sweep1d"] + 1
+                assert ((px < 0).any() and (px > w - 1).any()), "the fan stays inside the row"
+                err = (got - want).abs().max().item()
+                assert err <= 1e-4 * max(1.0, want.abs().max().item()), (c, n, h, w, d)

@@ -212,12 +212,13 @@ def test_cuda_adjoint_branches_on_card(rng, channels, fan):
     """Both adjoint kernels against autograd of the plain forward on the
     card, through the autograd.Function, at the scatter's branches: every
     C, H and W that are not multiples of its tile, D from 1 to 7, fans whose
-    taps fit the window, overflow it, or leave the image.  Tolerance as
-    above."""
+    taps fit the window, overflow it, or leave the image; and deep sweeps,
+    whose planes the reference gradient takes in runs with a ragged last
+    one: D = 17 and D = 48 (the s1 main sweep).  Tolerance as above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
     for b, v, h, w, d in ((1, 2, 37, 53, 1), (2, 5, 40, 56, 4), (2, 3, 29, 70, 5),
-                          (1, 4, 16, 40, 7)):
+                          (1, 4, 16, 40, 7), (2, 3, 13, 29, 17), (1, 5, 19, 37, 48)):
         feats, rel, depth, cot = _card_case(rng, channels, b, v, h, w, d, fan)
         f = feats.clone().requires_grad_()
         twc.warp_correlate(f, rel, depth).backward(cot)
