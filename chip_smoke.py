@@ -6,7 +6,11 @@
 seeded sets of weights and prints it, to show its spread; nothing is held
 there.
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.  The
+synthetic rows of phases 3, 4 and 7-9 run on two camera sets: "translate"
+(x translation and 0.01 rad about y per view index) and "orbit" (views on an
+arc around a point at depth 600, rotated by degrees about x, y and z:
+utils/synthetic.orbit_camera_stack), each row naming its set:
 
 1. the card (nvidia-smi name and power limit), torch / CUDA versions and
    the TF32 flags (pinned off: the port is held to the fp32 reference);
@@ -74,10 +78,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    then kernels 4 and 5 as in phases 7 and 8 on the inputs that one batch
    of the all-routed epipolar model gave them: the four resamples and the
    sweep of each of its six passes ("inputs": "model eval");
-11. a "kernels" JSON line (sums over the passes; bounds summed per pass;
-   "model_ms" on the model's inputs, for all five kernels; the scatter's
-   atomic adds), the card line, and the final {"ok": true, "device": {...}}
-   line.
+11. "gate", the port's counterpart of tests/test_geometry_gate.py: 80
+   overfit steps of the port's train step on a 96x128, 4-view plane scene
+   (kernels 1-3, counted), the CLI's --test with pcd in two worker processes
+   forked after the card is in use, and eval_scan of the fused cloud
+   against a 2 mm grid on the plane, held as the JAX gate holds it; then
+   kernels 1-3 as in phases 3 and 4 on the tensors of the first overfit
+   step's six cost passes ("inputs": "model gate");
+12. "recipe_dtu": the CLI's --test --preset dtu_test with the preset's own
+   pcd fusion on an 11-view 864x1152 scene, the gate's weights loaded
+   strictly: 11 maps, 36 kernel-1 launches, a PLY that parses;
+13. "vis": the CLI's --vis on one of those depth maps;
+14. "recipe_tank": the CLI's --test --preset tank_test (11 views,
+   1080x2048 snapped to 1056x2048, 64/32/8, dypcd) on a wide-baseline
+   scene: 66 launches, peak device memory, seconds per map and of dypcd;
+   then kernel 1 against its plain version on the six passes of one map
+   (D = 64 / 32 / 8 and the refines; "inputs": "model tank");
+15. "blendedmvs": the CLI at --preset blendedmvs_finetune on a synthetic
+   576x768, 7-view BlendedMVS tree, resuming the weights alone of phase 6's
+   checkpoint (equal before the first step): 3 steps and a validation
+   batch, their launches, finite losses, ms per step; then kernels 1-3 on
+   the tensors of the first step's six cost passes ("inputs": "model
+   blendedmvs");
+16. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+   (sums over the passes; bounds summed per pass; "model_ms" on the model's
+   inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
+   on each recipe path and "recipe_model_ms" on the recipes' tensors; the
+   scatter's atomic adds), the card line, and the
+   final {"ok": true, "device": {...}} line.
 
 Exits non-zero without a result when CUDA is unavailable, or when run
 outside the repository (the port is not importable).
@@ -98,6 +126,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from dmvsnet_tpu_torch import pin_fp32
 from dmvsnet_tpu_torch.core import epipolar, geometry, sampling
@@ -105,8 +134,12 @@ from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 from dmvsnet_tpu_torch.engine import checkpoint as ckpt_lib
 from dmvsnet_tpu_torch.engine.evaluate import build_model
+from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_train_step
 from dmvsnet_tpu_torch.engine.train import Trainer, build_model as build_train_model
+from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG
+from dmvsnet_tpu_torch.fusion.dtu_eval import eval_scan
+from dmvsnet_tpu_torch.fusion.ply import read_ply
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
 from dmvsnet_tpu_torch.models import mvsnet
 from dmvsnet_tpu_torch.ops import cuda_build
@@ -148,9 +181,27 @@ LOSS_RTOL = 1e-4
 GRAD_RTOL = dict(all_parameters=1e-4, median_parameter=1e-4, worst_parameter=1e-3)
 PATH_GRAD_RTOL = dict(all_parameters=5e-3, median_parameter=1e-3, worst_parameter=1e-1)
 AB_REPS = 10
+# the synthetic rows of phases 3, 4 and 7-9 run on both camera sets; the
+# "kernels" line sums the "translate" rows (comparable with earlier runs) and
+# gives the "orbit" rows' sums beside them
+CAMERA_SETS = ("translate", "orbit")
 PASS_NAMES = ("s1 main", "s1 refine", "s2 main", "s2 refine", "s3 main", "s3 refine")
 # NUMERICS.json "tol": the epipolar model against the exact model
 EPI_TOL = dict(mean_mm=0.5, p99_mm=5.0, max_mm=60.0, conf_mean=0.005)
+# phases 11-15, the shipped test recipes: the geometry gate's scene and
+# overfit (those of tests/test_geometry_gate.py), the 11-view DTU and T&T
+# scenes (tank: 18 mm a view, as tools/tank_smoke.py, at the preset's largest
+# resolution), the BlendedMVS fine-tune's low-res shape
+GATE_H, GATE_W, GATE_V, PLANE_Z, GATE_STEPS = 96, 128, 4, 600.0, 80
+RECIPE_V = 11
+TANK_H, TANK_W, TANK_SNAP_H, TANK_BASELINE = 1080, 2048, 1056, 18.0
+TANK_SCENE = "SyntheticWide"
+BMVS_H, BMVS_W, BMVS_V, BMVS_STEPS = 576, 768, 7, 3
+BMVS_SCENE = "synthetic_plane"
+# the "inputs" of the kernel rows on the recipes' own tensors (phases 11,
+# 14 and 15): one pass set each, held like the others and reported in the
+# "kernels" line's max_abs_err and recipe_model_ms
+RECIPE_INPUTS = ("model gate", "model tank", "model blendedmvs")
 
 
 def card_line() -> str:
@@ -189,20 +240,23 @@ def pass_cost(b, v, d, h, w, c):
     return nbytes, flops
 
 
-def stage_cameras(height: int = H, width: int = W) -> dict[str, torch.Tensor]:
-    cams = np.stack([synthetic.camera_stack(1.2 * width, 1.2 * width, width / 2, height / 2,
-                                            tx=-12.0 * i, angle=0.01 * i)
-                     for i in range(V)])
+def stage_cameras(height: int = H, width: int = W,
+                  cameras: str = "translate") -> dict[str, torch.Tensor]:
+    """The smoke's batch-2, 5-view cameras per stage: "translate" (x
+    translation and 0.01 rad about y per view index) or "orbit" (on an arc
+    around a point at depth 600, rotated by degrees about x, y and z:
+    utils/synthetic.orbit_camera_stack)."""
+    cams = synthetic.camera_set(cameras, V, height, width, tx=-12.0)
     return {k: torch.from_numpy(np.broadcast_to(p, (B, *p.shape)).copy()).cuda()
             for k, p in synthetic.stage_projections(cams).items()}
 
 
-def pass_cases(dev, height: int, width: int):
+def pass_cases(dev, height: int, width: int, cameras: str = "translate"):
     """The six cost passes of one batch-2, 5-view cascade at height x width
     as (name, C, feats, rel, depth): per stage the main sweep and a 4-plane
     refine fan spread far enough to reach zero and negative depths."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    projs = stage_cameras(height, width)
+    projs = stage_cameras(height, width, cameras)
     depth_values = torch.from_numpy(
         (1.0 / np.linspace(1 / 500.0, 1 / 788.0, 192, endpoint=False)).astype(np.float32)
     )[None].repeat(B, 1).to(dev)
@@ -246,19 +300,21 @@ def tap_stats(rel, depth, h: int, w: int) -> dict:
                 motion_px_per_plane=statistics.median(motion) if motion else 0.0)
 
 
-def forward_row(name: str, inputs: str, feats, rel, depth, plain_reps: int) -> dict:
+def forward_row(name: str, inputs: str, feats, rel, depth, plain_reps: int,
+                cameras: str | None = None) -> dict:
     """Kernel 1 on one pass's inputs: against its plain version, its time
     (and the plain version's when ``plain_reps``), the bound, where the
-    samples fall."""
+    samples fall; synthetic inputs name their camera set."""
     b, v, h, w, c = feats.shape
     got = wc.warp_correlate(feats, rel, depth)
     want = wc.warp_correlate_plain(feats, rel, depth)
     torch.cuda.synchronize()
     err, tol = check_close(f"{name} ({inputs}) kernel 1", got, want)
     nbytes, flops = pass_cost(b, v, depth.shape[1], h, w, c)
-    row = dict(pass_=name, inputs=inputs, C=c, D=depth.shape[1], H=h, W=w, max_abs_err=err,
-               tol=tol, kernel_ms=time_ms(lambda: wc.warp_correlate(feats, rel, depth),
-                                          KERNEL_REPS, KERNEL_INNER))
+    row = dict(pass_=name, inputs=inputs, **camera_key(cameras), C=c, D=depth.shape[1], H=h,
+               W=w, max_abs_err=err, tol=tol,
+               kernel_ms=time_ms(lambda: wc.warp_correlate(feats, rel, depth), KERNEL_REPS,
+                                 KERNEL_INNER))
     if plain_reps:
         row["plain_ms"] = time_ms(lambda: wc.warp_correlate_plain(feats, rel, depth), plain_reps)
     row.update(bytes=nbytes, flops=flops, **tap_stats(rel, depth, h, w))
@@ -266,12 +322,17 @@ def forward_row(name: str, inputs: str, feats, rel, depth, plain_reps: int) -> d
     return row
 
 
+def camera_key(cameras: str | None) -> dict:
+    return {} if cameras is None else {"cameras": cameras}
+
+
 def kernel_vs_plain(dev) -> list[dict]:
     """Phase 3: the forward kernel against its plain version at the six
-    eval pass shapes."""
+    eval pass shapes, under both camera sets."""
     rows = []
-    for name, c, feats, rel, depth in pass_cases(dev, H, W):
-        rows.append(forward_row(name, "synthetic", feats, rel, depth, PLAIN_REPS))
+    for cameras in CAMERA_SETS:
+        for name, c, feats, rel, depth in pass_cases(dev, H, W, cameras):
+            rows.append(forward_row(name, "synthetic", feats, rel, depth, PLAIN_REPS, cameras))
     return rows
 
 
@@ -321,7 +382,7 @@ def plain_grad(feats, rel, depth, cot, wrt: str):
 
 
 def adjoint_rows(name: str, inputs: str, feats, rel, depth, cot,
-                 plain_reps: int) -> list[dict]:
+                 plain_reps: int, cameras: str | None = None) -> list[dict]:
     """Both adjoint kernels on one pass's inputs, through the
     autograd.Function: against autograd of the plain forward, no gradient
     for projections and depths, the run-to-run spread of the scatter, its
@@ -348,7 +409,8 @@ def adjoint_rows(name: str, inputs: str, feats, rel, depth, cot,
         tol = 1e-4 * max(1.0, want[:, sl].abs().max().item())
         if not (np.isfinite(err) and err <= tol):
             raise AssertionError(f"{name} ({inputs}) {kernel}: max |diff| {err} > {tol}")
-        row = dict(pass_=name, inputs=inputs, kernel=kernel, C=c, D=d, H=h, W=w,
+        row = dict(pass_=name, inputs=inputs, **camera_key(cameras), kernel=kernel, C=c, D=d,
+                   H=h, W=w,
                    max_abs_err=err, tol=tol, max_abs_plain=want[:, sl].abs().max().item())
         if wrt == "src":
             # fp32 atomics: two runs of the same scatter differ in the last bits
@@ -373,26 +435,30 @@ def adjoint_rows(name: str, inputs: str, feats, rel, depth, cot,
 
 def adjoints_vs_plain(dev) -> list[dict]:
     """Phase 4: the adjoint kernels against autograd of the plain forward at
-    the six train pass shapes, through the autograd.Function."""
+    the six train pass shapes, through the autograd.Function, under both
+    camera sets."""
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    for name, c, feats, rel, depth in pass_cases(dev, TRAIN_H, TRAIN_W):
-        cot = torch.randn((B, *depth.shape[1:], 2), generator=gen, device=dev)
-        rows += adjoint_rows(name, "synthetic", feats, rel, depth, cot, PLAIN_REPS)
-        del cot
+    for cameras in CAMERA_SETS:
+        for name, c, feats, rel, depth in pass_cases(dev, TRAIN_H, TRAIN_W, cameras):
+            cot = torch.randn((B, *depth.shape[1:], 2), generator=gen, device=dev)
+            rows += adjoint_rows(name, "synthetic", feats, rel, depth, cot, PLAIN_REPS, cameras)
+            del cot
     return rows
 
 
 @contextlib.contextmanager
-def capture_calls(module, attr: str, into: list):
+def capture_calls(module, attr: str, into: list, keep=lambda args: True, to=None):
     """Within the block ``module.<attr>`` appends a copy of its tensor
-    arguments to ``into`` on every call, then runs as before: the inputs the
-    model's cost passes (or the kernels of its epipolar passes) really
-    receive."""
+    arguments to ``into`` on every call for which ``keep(args)`` holds, then
+    runs as before: the inputs the model's cost passes (or the kernels of
+    its epipolar passes) really receive.  ``to="cpu"`` keeps the copies in
+    host memory, out of the card's peak of the path that is measured."""
     saved = getattr(module, attr)
 
     def recording(*args):
-        into.append(tuple(a.detach().clone() for a in args))
+        if keep(args):
+            into.append(tuple(a.detach().to(to, copy=True) for a in args))
         return saved(*args)
 
     setattr(module, attr, recording)
@@ -412,16 +478,24 @@ def in_pass_order(captured: list) -> list:
 
 def model_rows(captured: list, inputs: str) -> list[dict]:
     """Kernels 1-3 per pass on the tensors the model's cost passes received:
-    kernel 1 on the six passes of one dtu_test batch (``inputs`` "model
-    eval"), or kernels 1, 2 and 3 on those of one dtu_train step's backward
-    ("model train")."""
+    kernel 1 on the six passes of one forward (captured calls of
+    ``wc.warp_correlate``: feats, rel, depth), or kernels 1, 2 and 3 on
+    those of one train step's backward (captured calls of
+    ``wc.warp_correlate_grad``, which also carry the cotangent)."""
     rows = []
     for name, args in zip(PASS_NAMES, in_pass_order(captured)):
+        args = [a.cuda() for a in args]
         with torch.inference_mode():
             rows.append(forward_row(name, inputs, *args[:3], 0))
-        if inputs == "model train":
+        if len(args) == 4:
             rows += adjoint_rows(name, inputs, *args, 0)
     return rows
+
+
+def first_pass_set(captured: list):
+    """``keep`` for capture_calls: the first six calls, the cost passes of
+    one forward (at eval batch 1, one map) or of one step's backward."""
+    return lambda args: len(captured) < len(PASS_NAMES)
 
 
 def check_pfms(out_dir: str, n_views: int) -> None:
@@ -516,10 +590,10 @@ def smoke_fans(dev, gen, h: int, w: int, nd: int, refine: bool, zero_crossing: b
     return (mid + ks * step).contiguous()
 
 
-def pair_geometry(dev, s: int, h: int, w: int):
+def pair_geometry(dev, s: int, h: int, w: int, cameras: str = "translate"):
     """The N = B*(V-1) pairs of the smoke's cameras at stage s: relative
     projections (B, V-1, 3, 4), their Rectification, pair -> batch index."""
-    rel = geometry.relative_projections(stage_cameras()[f"stage{s + 1}"])
+    rel = geometry.relative_projections(stage_cameras(cameras=cameras)[f"stage{s + 1}"])
     rect = epipolar.compute_rectification(rel.reshape(B * (V - 1), 3, 4), h, w)
     pb = torch.arange(B, device=dev).repeat_interleave(V - 1)
     return rel, rect, pb
@@ -533,7 +607,8 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float
     return err, tol
 
 
-def resample_row(name: str, what: str, inputs: str, img, px, py, plain_reps: int) -> dict:
+def resample_row(name: str, what: str, inputs: str, img, px, py, plain_reps: int,
+                 cameras: str | None = None) -> dict:
     """Kernel 4 on one resample's inputs: against its plain version, its
     time, the bound; with ``plain_reps`` also the plain version's time and
     F.grid_sample's (the library call: NCHW input and normalised
@@ -543,7 +618,8 @@ def resample_row(name: str, what: str, inputs: str, img, px, py, plain_reps: int
     want = es.resample_plain(img, px, py)
     torch.cuda.synchronize()
     err, tol = check_close(f"{name} ({inputs}) resample {what}", got, want)
-    row = dict(kernel="resample", pass_=name, inputs=inputs, what=what, N=n, C=ch, H=h, W=w,
+    row = dict(kernel="resample", pass_=name, inputs=inputs, **camera_key(cameras), what=what,
+               N=n, C=ch, H=h, W=w,
                max_abs_err=err, tol=tol,
                outside_share=((px < 0) | (px > w - 1) | (py < 0) | (py > h - 1)).float().mean().item())
     if plain_reps:
@@ -569,28 +645,31 @@ def resample_row(name: str, what: str, inputs: str, img, px, py, plain_reps: int
 
 def resample_vs_plain(dev) -> list[dict]:
     """Phase 7: the resample kernel against its plain version and beside
-    F.grid_sample at the four resamples of each eval cost pass."""
+    F.grid_sample at the four resamples of each eval cost pass, on the
+    rectifications of both camera sets."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    for s, name, c, nd, h, w in pass_shapes():
-        n = B * (V - 1)
-        _, rect, _ = pair_geometry(dev, s, h, w)
-        rxx, rxy = epipolar.rect_grid_coords(rect.h_ref, h, w)
-        sxx, sxy = epipolar.rect_grid_coords(rect.h_src, h, w)
-        ux, uy = epipolar.unrect_grid_coords(rect.h_ref, h, w)
-        for what, ch, px, py in (("coeffs", 4, rxx, rxy), ("ref", c, rxx, rxy),
-                                 ("src", c, sxx, sxy), ("unrect", 2 * nd, ux, uy)):
-            img = torch.randn((n, h, w, ch), generator=gen, device=dev)
-            rows.append(resample_row(name, what, "synthetic", img, px.contiguous(),
-                                     py.contiguous(), PLAIN_REPS))
-            del img
-        torch.cuda.empty_cache()
+    for cameras in CAMERA_SETS:
+        for s, name, c, nd, h, w in pass_shapes():
+            n = B * (V - 1)
+            _, rect, _ = pair_geometry(dev, s, h, w, cameras)
+            rxx, rxy = epipolar.rect_grid_coords(rect.h_ref, h, w)
+            sxx, sxy = epipolar.rect_grid_coords(rect.h_src, h, w)
+            ux, uy = epipolar.unrect_grid_coords(rect.h_ref, h, w)
+            for what, ch, px, py in (("coeffs", 4, rxx, rxy), ("ref", c, rxx, rxy),
+                                     ("src", c, sxx, sxy), ("unrect", 2 * nd, ux, uy)):
+                img = torch.randn((n, h, w, ch), generator=gen, device=dev)
+                rows.append(resample_row(name, what, "synthetic", img, px.contiguous(),
+                                         py.contiguous(), PLAIN_REPS, cameras))
+                del img
+            torch.cuda.empty_cache()
     if not any(r["outside_share"] > 0 for r in rows):
         raise AssertionError("no resample coordinate left the image: zero padding untested")
     return rows
 
 
-def sweep_row(name: str, inputs: str, src_r, ref_r, px, plain_reps: int) -> dict:
+def sweep_row(name: str, inputs: str, src_r, ref_r, px, plain_reps: int,
+              cameras: str | None = None) -> dict:
     """Kernel 5 on one pass's inputs: against its plain version, its time
     (and the plain version's when ``plain_reps``), the bound."""
     n, h, w, c = src_r.shape
@@ -600,7 +679,8 @@ def sweep_row(name: str, inputs: str, src_r, ref_r, px, plain_reps: int) -> dict
     torch.cuda.synchronize()
     err, tol = check_close(f"{name} ({inputs}) sweep1d", got, want)
     del got, want
-    row = dict(kernel="sweep1d", pass_=name, inputs=inputs, N=n, C=c, D=nd, H=h, W=w,
+    row = dict(kernel="sweep1d", pass_=name, inputs=inputs, **camera_key(cameras), N=n, C=c,
+               D=nd, H=h, W=w,
                max_abs_err=err, tol=tol,
                outside_share=((px < 0) | (px > w - 1)).float().mean().item(),
                kernel_ms=time_ms(lambda: es.sweep1d(src_r, ref_r, px), KERNEL_REPS, KERNEL_INNER))
@@ -614,27 +694,30 @@ def sweep_row(name: str, inputs: str, src_r, ref_r, px, plain_reps: int) -> dict
 
 def sweep_vs_plain(dev) -> list[dict]:
     """Phase 8: the 1-D sweep kernel against its plain version at the six
-    pass shapes, on coordinates made as the path makes them."""
+    pass shapes, on coordinates made as the path makes them from both camera
+    sets."""
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
-    for s, name, c, nd, h, w in pass_shapes():
-        n = B * (V - 1)
-        refine = name.endswith("refine")
-        _, rect, pb = pair_geometry(dev, s, h, w)
-        dv = smoke_fans(dev, gen, h, w, nd, refine, zero_crossing=True)
-        if refine and not bool((dv < 0).any() and (dv > 0).any()):
-            raise AssertionError(f"{name}: refine fan does not cross zero")
-        coeffs0, inv_ok, dep_ok = es._fan_coeffs(dv)
-        if not (refine or bool(inv_ok.all())):
-            raise AssertionError(f"{name}: the cascade fan does not fit the inverse form")
-        del inv_ok, dep_ok
-        coeffs = es.resample(coeffs0[pb], *(t.contiguous() for t in
-                                            epipolar.rect_grid_coords(rect.h_ref, h, w)))
-        px = es._fan_px(rect, coeffs, [not refine] * n, nd, h, w).contiguous()
-        src_r, ref_r = (torch.randn((n, h, w, c), generator=gen, device=dev) for _ in range(2))
-        rows.append(sweep_row(name, "synthetic", src_r, ref_r, px, PLAIN_REPS))
-        del src_r, ref_r, px, coeffs, coeffs0, dv
-        torch.cuda.empty_cache()
+    for cameras in CAMERA_SETS:
+        for s, name, c, nd, h, w in pass_shapes():
+            n = B * (V - 1)
+            refine = name.endswith("refine")
+            _, rect, pb = pair_geometry(dev, s, h, w, cameras)
+            dv = smoke_fans(dev, gen, h, w, nd, refine, zero_crossing=True)
+            if refine and not bool((dv < 0).any() and (dv > 0).any()):
+                raise AssertionError(f"{name}: refine fan does not cross zero")
+            coeffs0, inv_ok, dep_ok = es._fan_coeffs(dv)
+            if not (refine or bool(inv_ok.all())):
+                raise AssertionError(f"{name}: the cascade fan does not fit the inverse form")
+            del inv_ok, dep_ok
+            coeffs = es.resample(coeffs0[pb], *(t.contiguous() for t in
+                                                epipolar.rect_grid_coords(rect.h_ref, h, w)))
+            px = es._fan_px(rect, coeffs, [not refine] * n, nd, h, w).contiguous()
+            src_r, ref_r = (torch.randn((n, h, w, c), generator=gen, device=dev)
+                            for _ in range(2))
+            rows.append(sweep_row(name, "synthetic", src_r, ref_r, px, PLAIN_REPS, cameras))
+            del src_r, ref_r, px, coeffs, coeffs0, dv
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -657,15 +740,28 @@ def epipolar_model_rows(resamples: list, sweeps: list) -> list[dict]:
     return rows
 
 
+def gate_decisions(rel, h: int, w: int) -> dict:
+    """What the geometry gates of ops/epipolar_sweep see for each of the
+    B*(V-1) pairs: the epipole's distance from the source image centre in
+    image diagonals (the sweep needs more than EPIPOLE_MARGIN) and the
+    rectification's three scale factors (each inside (SCALE_MIN, SCALE_MAX))."""
+    rect = epipolar.compute_rectification(rel.reshape(-1, *rel.shape[2:]).cpu(), h, w)
+    diag = float((h * h + w * w) ** 0.5)
+    return dict(epipole_dist_diagonals=[round(x, 3) for x in (rect.epipole_dist / diag).tolist()],
+                scales=[[round(x, 3) for x in row] for row in rect.scales.tolist()],
+                epipole_margin=es.EPIPOLE_MARGIN, scale_range=[es.SCALE_MIN, es.SCALE_MAX])
+
+
 def ab_per_pass(dev) -> list[dict]:
-    """Phase 9: per (stage, pass), the whole epipolar cost pass against the
-    exact kernel on the same inputs, and against itself with the
-    rectification's 3x3 algebra on the card (CUDA-event ms, median of
-    AB_REPS; the epipolar pass includes its gates and their one host read)."""
+    """Phase 9: per (stage, pass) and camera set, the whole epipolar cost
+    pass against the exact kernel on the same inputs, and against itself
+    with the rectification's 3x3 algebra on the card (CUDA-event ms, median
+    of AB_REPS; the epipolar pass includes its gates and their one host
+    read); the orbit rows also print the gates' inputs."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    projs = stage_cameras()
     rows = []
-    for s, name, c, nd, h, w in pass_shapes():
+    for cameras, (s, name, c, nd, h, w) in ((k, p) for k in CAMERA_SETS for p in pass_shapes()):
+        projs = stage_cameras(cameras=cameras)
         feats = torch.randn((B, V, h, w, c), generator=gen, device=dev)
         proj2 = projs[f"stage{s + 1}"]
         dv = smoke_fans(dev, gen, h, w, nd, name.endswith("refine"), zero_crossing=False)
@@ -685,8 +781,8 @@ def ab_per_pass(dev) -> list[dict]:
                 raise AssertionError(f"{name}: flags {flags.tolist()} with the rectification on "
                                      f"the host, {flags_card.tolist()} with it on the card")
             diff = (cost - exact).abs()
-            row = dict(pass_=name, stage=s, refine=name.endswith("refine"), C=c, D=nd, H=h, W=w,
-                       engaged=flags.tolist(),
+            row = dict(pass_=name, cameras=cameras, stage=s, refine=name.endswith("refine"), C=c,
+                       D=nd, H=h, W=w, engaged=flags.tolist(),
                        mean_abs_diff_vs_exact=diff.mean().item(),
                        max_abs_exact=exact.abs().max().item(),
                        mean_abs_diff_rectification_on_card=(cost_card - cost).abs().mean().item())
@@ -701,6 +797,8 @@ def ab_per_pass(dev) -> list[dict]:
         row.update(exact_ms=(t[0] + t[5]) / 2, epipolar_ms=(t[1] + t[4]) / 2,
                    epipolar_ms_rectification_on_card=(t[2] + t[3]) / 2, runs_ms=t)
         row["sweep_wins"] = bool(flags.all()) and row["epipolar_ms"] < row["exact_ms"]
+        if cameras == "orbit":
+            row["gates"] = gate_decisions(geometry.relative_projections(proj2), h, w)
         print("ab " + json.dumps({k.rstrip("_"): v for k, v in row.items()}), flush=True)
         rows.append(row)
         del feats, dv
@@ -1049,7 +1147,7 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
     with capture_calls(wc, "warp_correlate_grad", captured):
         loss_and_grads(model, "cuda")
     return dict(
-        steps=summary["step"], launches=launches, cli_wall_s=wall,
+        steps=summary["step"], launches=launches, cli_wall_s=wall, checkpoint=latest,
         train_avg=epoch["train_avg"], val_avg=epoch["val_avg"],
         resumed_epoch=trainer.start_epoch, resumed_step=steps,
         loss_kernel=held["loss_kernel"], loss_plain=held["loss_plain"],
@@ -1061,14 +1159,265 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
         peak_mem_gb=peak_mem_gb), launches, captured
 
 
-def report(every: list[dict], eval_launches, train_launches, epi_launches,
-           fallback_launches) -> None:
-    """The "kernels" line, from the rows of the five kernels on synthetic
-    and model inputs."""
+def expect_launches(what: str, got: dict, **want: int) -> None:
+    """Raises unless the launch counts ``got`` are ``want`` (0 for every
+    kernel not named)."""
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, expected {full}")
 
-    def rows_of(kernel, inputs):
+
+def geometry_gate(dev, tmp: str, num_worker: int = 2) -> tuple[dict, str]:
+    """Phase 11, the port's counterpart of tests/test_geometry_gate.py:
+    overfit the model for GATE_STEPS steps of the port's train step on a
+    synthetic plane scene (96x128, 4 views, plane at z = 600), run the CLI's
+    --test on it with pcd fusion in ``num_worker`` processes (forked after
+    the card is in use: they touch only numpy), then DTU-protocol
+    eval_scan of the fused cloud against a 2 mm grid on the plane.  Holds
+    what the JAX gate holds.  Returns the line and the trained weights' path
+    (a weights-only file).  Runs on the CPU too (tests/test_torch_geometry_gate.py)."""
+    t0 = time.perf_counter()
+    datapath, outdir = os.path.join(tmp, "gate_data"), os.path.join(tmp, "gate_out")
+    synthetic.write_eval_scene(datapath, "scan1", height=GATE_H, width=GATE_W, n_views=GATE_V,
+                               depth=PLANE_Z)
+    argv = ["--test", "--dataset_name", "general_eval", "--datapath", datapath,
+            "--outdir", outdir, "--testlist", "scan1", "--ndepths", "8", "8", "8",
+            "--interval_ratio", "4", "2", "1", "--numdepth", "32", "--max_h", str(GATE_H),
+            "--max_w", str(GATE_W), "--num_view", str(GATE_V), "--inverse_depth",
+            "--filter_method", "pcd", "--thres_view", "2", "--conf", "0", "0", "0",
+            "--num_worker", str(num_worker), "--device", dev.type]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    sample = GeneralEvalDataset(datapath, ["scan1"], nviews=GATE_V, ndepths=cfg.numdepth,
+                                max_h=GATE_H, max_w=GATE_W, inverse_depth=True)[0]
+
+    def on_dev(x):
+        return torch.from_numpy(np.asarray(x)[None]).to(dev)
+
+    scales = ((1, 4), (2, 2), (3, 1))
+    batch = {"imgs": on_dev(sample["imgs"]),
+             "proj_matrices": {k: on_dev(v) for k, v in sample["proj_matrices"].items()},
+             "depth_values": on_dev(sample["depth_values"]),
+             "depth": {f"stage{st}": torch.full((1, GATE_H // sc, GATE_W // sc), PLANE_Z,
+                                                device=dev) for st, sc in scales},
+             "mask": {f"stage{st}": torch.ones((1, GATE_H // sc, GATE_W // sc), device=dev)
+                      for st, sc in scales}}
+    model = build_train_model(cfg, dev)
+    optimizer, scheduler = make_optimizer(model.parameters(), make_lr_schedule(1e-3, 1))
+    step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
+    cuda_build.reset_launches()
+    t1 = time.perf_counter()
+    for _ in range(GATE_STEPS):
+        scalars, _ = step(model, optimizer, scheduler, batch)
+    scalars = {k: float(v) for k, v in scalars.items()}
+    overfit_s = time.perf_counter() - t1
+    train_launches = cuda_build.launches()
+    # the net must have learned the scene, or the bounds below would grade
+    # fusion's rejection power instead of the chain
+    if not scalars["thres4mm_error"] < 0.15:
+        raise AssertionError(f"gate: {GATE_STEPS} steps left {scalars}")
+    weights = os.path.join(tmp, "gate_weights.pt")
+    ckpt_lib.save_weights(weights, model)
+
+    cuda_build.reset_launches()
+    summary = cli.main(argv + ["--resume", weights])
+    test_launches = cuda_build.launches()
+    if dev.type == "cuda":
+        n = 6 * GATE_STEPS
+        expect_launches("gate overfit", train_launches, warp_correlate=n,
+                        warp_correlate_grad_ref=n, warp_correlate_grad_src=n)
+        expect_launches("gate --test", test_launches, warp_correlate=6 * GATE_V)
+    xyz, _ = read_ply(summary["ply"][0])
+    # GT "stl": a 2 mm grid on z = PLANE_Z over the region all views see
+    gx, gy = np.meshgrid(np.arange(-150.0, 150.0, 2.0), np.arange(-120.0, 120.0, 2.0))
+    stl = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, PLANE_Z)], axis=1)
+    r = eval_scan(xyz.astype(np.float64), stl, scan_id=1)
+    row = dict(points=len(xyz), mean_acc_mm=r.mean_acc, mean_comp_mm=r.mean_comp,
+               overall_mm=r.overall, median_z_mm=float(np.median(xyz[:, 2])) if len(xyz) else None,
+               steps=GATE_STEPS, thres4mm_error=scalars["thres4mm_error"], loss=scalars["loss"],
+               train_launches=train_launches, test_launches=test_launches, maps=summary["maps"],
+               num_worker=num_worker, overfit_s=overfit_s,
+               fusion_s=summary["fusion_seconds"], seconds=time.perf_counter() - t0)
+    if not (len(xyz) > 5000 and r.mean_acc < 4.0 and r.mean_comp < 4.0 and r.overall < 4.0
+            and abs(row["median_z_mm"] - PLANE_Z) < 2.0):
+        raise AssertionError(f"gate: {row}")
+    return row, weights
+
+
+def recipe_dtu(dev, tmp: str, weights: str) -> tuple[dict, str]:
+    """Phase 12, the dtu_test recipe as users run it: the CLI's --test
+    --preset dtu_test with the preset's own fusion (pcd, thres_view 5, conf
+    0/0/0.3, num_view 5, eval_batch 2) on an 11-view synthetic scene at
+    864x1152 (pair.txt lists 10 sources, as DTU's does), with the gate's
+    weights loaded strictly (no parameter shape depends on ndepths).
+    Returns the line and one depth PFM."""
+    t0 = time.perf_counter()
+    datapath, outdir = os.path.join(tmp, "recipe_dtu"), os.path.join(tmp, "recipe_dtu_out")
+    synthetic.write_eval_scene(datapath, "scan1", height=H, width=W, n_views=RECIPE_V, seed=1)
+    argv = ["--test", "--preset", "dtu_test", "--datapath", datapath, "--testlist", "scan1",
+            "--outdir", outdir, "--resume", weights]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    got = (cfg.filter_method, cfg.thres_view, tuple(cfg.conf), cfg.num_view, cfg.eval_batch)
+    if got != ("pcd", 5, (0.0, 0.0, 0.3), 5, 2):
+        raise AssertionError(f"recipe_dtu: the preset gives {got}")
+    cuda_build.reset_launches()
+    summary = cli.main(argv)
+    launches = cuda_build.launches()
+    expect_launches("recipe_dtu", launches, warp_correlate=6 * -(-RECIPE_V // cfg.eval_batch))
+    if summary["maps"] != RECIPE_V:
+        raise AssertionError(f"recipe_dtu: {summary['maps']} maps")
+    check_pfms(outdir, RECIPE_V)
+    xyz, rgb = read_ply(summary["ply"][0])
+    if not (np.isfinite(xyz).all() and xyz.shape == rgb.shape):
+        raise AssertionError("recipe_dtu: the fused cloud has non-finite points")
+    d = summary["dispatch_seconds"]
+    return dict(maps=summary["maps"], launches=launches,
+                ply=os.path.basename(summary["ply"][0]), points=len(xyz),
+                median_z_mm=float(np.median(xyz[:, 2])) if len(xyz) else None,
+                inference_s=sum(d), dispatch_s=d, fusion_s=summary["fusion_seconds"],
+                seconds=time.perf_counter() - t0), os.path.join(outdir, "scan1", "depth_est",
+                                                                "00000000.pfm")
+
+
+def vis_phase(tmp: str, pfm: str) -> dict:
+    """Phase 13: the CLI's --vis on one depth map of recipe_dtu; the PNG has
+    the map's shape."""
+    t0 = time.perf_counter()
+    summary = cli.main(["--vis", "--depth_path", pfm, "--depth_img_save_dir",
+                        os.path.join(tmp, "vis")])
+    shape = np.asarray(Image.open(summary["png"])).shape
+    if shape != (*io.read_pfm(pfm)[0].shape, 3):
+        raise AssertionError(f"vis: {summary['png']} has shape {shape}")
+    return dict(png=os.path.basename(summary["png"]), shape=list(shape),
+                seconds=time.perf_counter() - t0)
+
+
+def recipe_tank(dev, tmp: str, weights: str) -> dict:
+    """Phase 14, the tank_test recipe at its full envelope: the CLI's --test
+    --preset tank_test (11 views, ndepths 64/32/8, interval ratios 3/2/1,
+    eval_batch 1, dypcd) on an 11-view wide-baseline scene (18 mm a view,
+    as tools/tank_smoke.py) at 1080x2048, which snaps to 1056x2048, named
+    outside TANK_SCENE_CONFIG, with --conf 0 0 0 so that dypcd's geometric
+    test decides.  Peak device memory of the whole run; returns the line."""
+    t0 = time.perf_counter()
+    datapath, outdir = os.path.join(tmp, "recipe_tank"), os.path.join(tmp, "recipe_tank_out")
+    synthetic.write_eval_scene(datapath, TANK_SCENE, height=TANK_H, width=TANK_W,
+                               n_views=RECIPE_V, baseline=TANK_BASELINE, seed=2)
+    scene_s = time.perf_counter() - t0
+    if TANK_SCENE in TANK_SCENE_CONFIG:
+        raise AssertionError(f"{TANK_SCENE} would take TANK_SCENE_CONFIG's overrides")
+    argv = ["--test", "--preset", "tank_test", "--datapath", datapath, "--testlist",
+            f"scans:{TANK_SCENE}", "--outdir", outdir, "--max_h", str(TANK_H),
+            "--max_w", str(TANK_W), "--conf", "0", "0", "0", "--resume", weights]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    got = (cfg.filter_method, cfg.num_view, tuple(cfg.ndepths), tuple(cfg.interval_ratio),
+           cfg.eval_batch)
+    if got != ("dypcd", RECIPE_V, (64, 32, 8), (3, 2, 1), 1):
+        raise AssertionError(f"recipe_tank: the preset gives {got}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    summary = cli.main(argv)
+    launches = cuda_build.launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    expect_launches("recipe_tank", launches, warp_correlate=6 * RECIPE_V)
+    if summary["maps"] != RECIPE_V:
+        raise AssertionError(f"recipe_tank: {summary['maps']} maps")
+    for v in range(RECIPE_V):
+        arr, _ = io.read_pfm(os.path.join(outdir, TANK_SCENE, "depth_est", f"{v:08d}.pfm"))
+        if arr.shape != (TANK_SNAP_H, TANK_W) or not np.isfinite(arr).all():
+            raise AssertionError(f"recipe_tank view {v}: shape {arr.shape}")
+    xyz, _ = read_ply(summary["ply"][0])
+    if not np.isfinite(xyz).all():
+        raise AssertionError("recipe_tank: the fused cloud has non-finite points")
+    d = summary["dispatch_seconds"]
+    return dict(shape=[TANK_SNAP_H, TANK_W], views=RECIPE_V, ndepths=list(cfg.ndepths),
+                filter_method=cfg.filter_method, maps=summary["maps"], launches=launches,
+                peak_mem_gb=peak_gb, peak_reserved_gb=reserved_gb,
+                card_mem_gb=torch.cuda.get_device_properties(0).total_memory / 1e9,
+                dispatch_s=d, s_per_map_after_first=statistics.median(d[1:]),
+                points=len(xyz), fusion_s=summary["fusion_seconds"], scene_s=scene_s,
+                seconds=time.perf_counter() - t0)
+
+
+def blendedmvs_path(dev, tmp: str, checkpoint: str) -> dict:
+    """Phase 15: the blendedmvs_finetune recipe through the CLI on a
+    synthetic BlendedMVS tree (576x768, 7 views, batch 1, numdepth 128,
+    lr 1e-4), resuming the weights alone of phase 6's checkpoint: the
+    weights equal the checkpoint's before the first step, epoch and step
+    start at 0, BMVS_STEPS steps and one validation batch launch 6 forward
+    + 6 + 6 adjoint kernels per step and 6 per validation batch, losses
+    finite; ms per step (host clock around each synchronised step)."""
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "blendedmvs")
+    synthetic.write_blendedmvs_tree(root, BMVS_SCENE, n_views=BMVS_V, height=BMVS_H,
+                                    width=BMVS_W)
+    argv = ["--preset", "blendedmvs_finetune", "--datapath", root,
+            "--trainlist", f"scans:{BMVS_SCENE}", "--testlist", f"scans:{BMVS_SCENE}",
+            "--log_dir", os.path.join(tmp, "bmvs_logs"), "--resume", checkpoint,
+            "--epochs", "1", "--max_train_samples", str(BMVS_STEPS), "--max_val_samples", "1",
+            "--summary_freq", "1"]
+    want = torch.load(checkpoint, map_location="cpu", weights_only=True)["model"]
+    seen, step_s, losses = {}, [], []
+    original = Trainer.train
+
+    def checked_train(self):
+        got = self.model.state_dict()
+        seen.update(weights_equal=set(got) == set(want)
+                    and all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                    start_epoch=self.start_epoch, step=self.step,
+                    dataset=type(self.train_ds).__name__, nviews=self.train_ds.nviews)
+        step = self.train_step
+
+        def timed_step(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            scalars, out = step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(scalars["loss"]))
+            return scalars, out
+
+        self.train_step = timed_step
+        return original(self)
+
+    Trainer.train = checked_train
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    try:
+        summary = cli.main(argv)
+    finally:
+        Trainer.train = original
+    launches = cuda_build.launches()
+    n = 6 * BMVS_STEPS
+    expect_launches("blendedmvs", launches, warp_correlate=n + 6, warp_correlate_grad_ref=n,
+                    warp_correlate_grad_src=n)
+    epoch = summary["history"][0]
+    if not (seen.get("weights_equal") and (seen["start_epoch"], seen["step"]) == (0, 0)
+            and seen["dataset"] == "BlendedMVSDataset" and seen["nviews"] == BMVS_V
+            and summary["step"] == BMVS_STEPS and len(losses) == BMVS_STEPS
+            and all(np.isfinite(losses))
+            and all(np.isfinite(v) for v in (*epoch["train_avg"].values(),
+                                             *epoch["val_avg"].values()))):
+        raise AssertionError(f"blendedmvs: resume {seen}, steps {summary['step']}, "
+                             f"losses {losses}, {epoch}")
+    return dict(steps=summary["step"], launches=launches, resumed=seen, losses=losses,
+                val_avg=epoch["val_avg"], step_s=step_s,
+                ms_per_step_after_first=1e3 * statistics.median(step_s[1:]),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                seconds=time.perf_counter() - t0)
+
+
+def report(every: list[dict], eval_launches, train_launches, epi_launches,
+           fallback_launches, recipes: dict[str, dict]) -> None:
+    """The "kernels" line, from the rows of the five kernels on synthetic
+    and model inputs; ``recipes`` are the launch counts of each recipe path
+    of phases 11-15, each read just after the path ran from counts at 0."""
+
+    def rows_of(kernel, inputs, cameras="translate"):
         return [r for r in every if r.get("kernel", "warp_correlate") == kernel
-                and r["inputs"] == inputs]
+                and r["inputs"] == inputs and r.get("cameras", "translate") == cameras]
 
     def atomics(rows) -> dict:
         """The scatter's counters summed over the passes of ``rows``."""
@@ -1078,29 +1427,40 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
     def kernel_entry(name, replaces, launches, rows, model=(), **extra):
         """A kernel's sums over its passes; the bound is the sum of the
         per-pass bounds (six launches, each bound by its own bytes or
-        operations), ``bound_by`` what bounds the larger share of it."""
+        operations), ``bound_by`` what bounds the larger share of it;
+        ``max_abs_err`` the largest over every row held, the recipes' rows
+        included."""
         by = {"bytes": 0.0, "operations": 0.0}
         for r in rows:
             by[r["bound_by"]] += r["bound_ms"]
         library = [r["library_ms"] for r in rows if "library_ms" in r]
+        orbit = rows_of(name, "synthetic", "orbit")
+        held = [r for inputs in RECIPE_INPUTS for r in rows_of(name, inputs)]
+        extra["recipe_launches"] = {path: n[name] for path, n in recipes.items()}
+        extra["recipe_model_ms"] = {inputs: sum(r["kernel_ms"] for r in rows_of(name, inputs))
+                                    for inputs in RECIPE_INPUTS if rows_of(name, inputs)}
         return {"name": name, "route": "cuda", "source": f"dmvsnet_tpu_torch/csrc/{name}.cu",
                 "replaces": f"dmvsnet_tpu/ops/pallas/{replaces}",
                 "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in (*rows, *model)),
+                "max_abs_err": max(r["max_abs_err"] for r in (*rows, *model, *orbit, *held)),
                 "ms": sum(r["kernel_ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(by.values()), "bound_by": max(by, key=by.get),
                 "library_ms": sum(library) if library else None,
-                "model_ms": sum(r["kernel_ms"] for r in model) if model else None, **extra}
+                "model_ms": sum(r["kernel_ms"] for r in model) if model else None,
+                "orbit_ms": sum(r["kernel_ms"] for r in orbit),
+                "orbit_plain_ms": sum(r["plain_ms"] for r in orbit),
+                "orbit_max_abs_err": max(r["max_abs_err"] for r in orbit), **extra}
 
     # ms, plain_ms, library_ms and bound_ms are sums over the six passes of
     # one forward (eval shapes; for the resample kernel its four launches per
     # pass) or one backward (train shapes) on the smoke's synthetic inputs;
     # model_ms the same on the inputs of one dtu_test batch (kernel 1), one
     # dtu_train step (kernels 2 and 3) or one dtu_test batch of the epipolar
-    # model with all six passes routed (kernels 4 and 5); launches are those of the path that
-    # was driven with the counts at 0 just before it; the scatter's atomic
-    # adds are summed over the same passes
+    # model with all six passes routed (kernels 4 and 5); recipe_model_ms
+    # the same on one pass set of each recipe (RECIPE_INPUTS); launches are
+    # those of the path that was driven with the counts at 0 just before
+    # it; the scatter's atomic adds are summed over the same passes
     print(json.dumps({"kernels": [
         kernel_entry("warp_correlate", "warp_correlate.py:147",
                      eval_launches["warp_correlate"], rows_of("warp_correlate", "synthetic"),
@@ -1142,10 +1502,19 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """Runs one phase and keeps its wall seconds for the "phases" line."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
 
     t0 = time.perf_counter()
     if len(cuda_build.build()) != 5:
         raise AssertionError(f"expected five kernels, built {sorted(cuda_build.build())}")
+    seconds["build"] = time.perf_counter() - t0
     print(f"build: {cuda_build.BUILD_INFO['seconds']:.2f}s with load "
           f"({time.perf_counter() - t0:.2f}s)", flush=True)
     for name, info in cuda_build.BUILD_INFO["kernels"].items():
@@ -1154,60 +1523,95 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"ptxas: {line.strip()}", flush=True)
 
-    rows = kernel_vs_plain(dev)
-    adj_rows = adjoints_vs_plain(dev)
-    resample_rows = resample_vs_plain(dev)
-    sweep_rows = sweep_vs_plain(dev)
-    ab_per_pass(dev)
-    fallback = fallback_case(dev)
+    rows = timed("kernel_1", kernel_vs_plain, dev)
+    adj_rows = timed("kernels_2_3", adjoints_vs_plain, dev)
+    resample_rows = timed("kernel_4", resample_vs_plain, dev)
+    sweep_rows = timed("kernel_5", sweep_vs_plain, dev)
+    timed("ab", ab_per_pass, dev)
+    fallback = timed("fallback", fallback_case, dev)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
-        t0 = time.perf_counter()
-        synthetic.write_eval_scene(os.path.join(tmp, "data"), "scan1", height=H, width=W,
-                                   n_views=V, seed=0)
-        print(f"scene: {time.perf_counter() - t0:.2f}s", flush=True)
-        argv = ["--test", "--preset", "dtu_test", "--datapath", os.path.join(tmp, "data"),
-                "--testlist", "scan1", "--outdir", os.path.join(tmp, "out"),
-                "--filter_method", "none", "--eval_batch", str(B)]
-        cuda_build.reset_launches()
-        t0 = time.perf_counter()
-        summary = cli.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        eval_launches = cuda_build.launches()
-        expected = {"warp_correlate": 6 * -(-V // B), "warp_correlate_grad_ref": 0,
-                    "warp_correlate_grad_src": 0, "resample": 0, "sweep1d": 0}
-        if summary["maps"] != V or eval_launches != expected:
-            raise AssertionError(f"main path: {summary['maps']} maps, launches "
-                                 f"{eval_launches} (expected {V} and {expected})")
-        check_pfms(os.path.join(tmp, "out"), V)
-        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
-        batch, eval_captured = check_batch(cfg, dev)
-        d = summary["dispatch_seconds"]
-        print("main " + json.dumps(dict(
-            maps=summary["maps"], launches=eval_launches["warp_correlate"], run_test_wall_s=wall,
-            dispatch_s=d, ms_per_map_after_first_dispatch=1e3 * sum(d[1:]) / (V - B), **batch)),
-            flush=True)
-        # kernel 1 on the model's own cost-pass inputs
-        model = model_rows(eval_captured, "model eval")
-        del eval_captured
+        def eval_main_path():
+            t0 = time.perf_counter()
+            synthetic.write_eval_scene(os.path.join(tmp, "data"), "scan1", height=H, width=W,
+                                       n_views=V, seed=0)
+            print(f"scene: {time.perf_counter() - t0:.2f}s", flush=True)
+            argv = ["--test", "--preset", "dtu_test", "--datapath", os.path.join(tmp, "data"),
+                    "--testlist", "scan1", "--outdir", os.path.join(tmp, "out"),
+                    "--filter_method", "none", "--eval_batch", str(B)]
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            summary = cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eval_launches = cuda_build.launches()
+            expected = {"warp_correlate": 6 * -(-V // B), "warp_correlate_grad_ref": 0,
+                        "warp_correlate_grad_src": 0, "resample": 0, "sweep1d": 0}
+            if summary["maps"] != V or eval_launches != expected:
+                raise AssertionError(f"main path: {summary['maps']} maps, launches "
+                                     f"{eval_launches} (expected {V} and {expected})")
+            check_pfms(os.path.join(tmp, "out"), V)
+            cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+            batch, eval_captured = check_batch(cfg, dev)
+            d = summary["dispatch_seconds"]
+            print("main " + json.dumps(dict(
+                maps=summary["maps"], launches=eval_launches["warp_correlate"],
+                run_test_wall_s=wall, dispatch_s=d,
+                ms_per_map_after_first_dispatch=1e3 * sum(d[1:]) / (V - B), **batch)),
+                flush=True)
+            # kernel 1 on the model's own cost-pass inputs
+            return eval_launches, model_rows(eval_captured, "model eval")
 
-        epi, epi_launches, (resamples, sweeps) = epipolar_path(dev, tmp)
+        eval_launches, model = timed("eval", eval_main_path)
+
+        epi, epi_launches, (resamples, sweeps) = timed("epipolar", epipolar_path, dev, tmp)
         print("epipolar " + json.dumps(epi), flush=True)
         # kernels 4 and 5 on the epipolar model's own inputs
         model += epipolar_model_rows(resamples, sweeps)
         del resamples, sweeps
 
-        train, train_launches, train_captured = train_path(dev, tmp, grad_trials)
+        train, train_launches, train_captured = timed("train", train_path, dev, tmp, grad_trials)
         print("train " + json.dumps(train), flush=True)
-
         # kernels 1-3 on the model's own cost-pass inputs
         model += model_rows(train_captured, "model train")
         del train_captured
 
+        # the shipped test recipes through the CLI; kernels 1-3 on the
+        # tensors of the gate's first overfit step, kernel 1 on those of
+        # one tank_test map (six passes, D = 64 at stage 1), kernels 1-3 on
+        # those of the first BlendedMVS step
+        captured = []
+        with capture_calls(wc, "warp_correlate_grad", captured, first_pass_set(captured),
+                           to="cpu"):
+            gate, weights = timed("gate", geometry_gate, dev, tmp)
+        print("gate " + json.dumps(gate), flush=True)
+        model += model_rows(captured, "model gate")
+        dtu, pfm = timed("recipe_dtu", recipe_dtu, dev, tmp, weights)
+        print("recipe_dtu " + json.dumps(dtu), flush=True)
+        print("vis " + json.dumps(timed("vis", vis_phase, tmp, pfm)), flush=True)
+        captured = []
+        with capture_calls(wc, "warp_correlate", captured, first_pass_set(captured),
+                           to="cpu"):
+            tank = timed("recipe_tank", recipe_tank, dev, tmp, weights)
+        print("recipe_tank " + json.dumps(tank), flush=True)
+        model += model_rows(captured, "model tank")
+        captured = []
+        torch.cuda.empty_cache()
+        with capture_calls(wc, "warp_correlate_grad", captured, first_pass_set(captured),
+                           to="cpu"):
+            bmvs = timed("blendedmvs", blendedmvs_path, dev, tmp, train["checkpoint"])
+        print("blendedmvs " + json.dumps(bmvs), flush=True)
+        model += model_rows(captured, "model blendedmvs")
+        del captured
+
+    print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
+          flush=True)
     report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
-           epi_launches, fallback["launches"])
+           epi_launches, fallback["launches"],
+           dict(gate_overfit=gate["train_launches"], gate_test=gate["test_launches"],
+                recipe_dtu=dtu["launches"], recipe_tank=tank["launches"],
+                blendedmvs=bmvs["launches"]))
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

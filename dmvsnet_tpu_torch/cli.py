@@ -1,14 +1,16 @@
-"""Command-line entry point of the port: training, validation and
-depth-map inference.
+"""Command-line entry point of the port: training, validation, depth-map
+inference with point-cloud fusion, and depth-map visualisation.
 
   dmvsnet-torch --preset dtu_train --datapath ... --log_dir ... [--resume model_000003.ckpt]
   dmvsnet-torch --val --preset dtu_train --datapath ... --resume ...
-  dmvsnet-torch --test --preset dtu_test --datapath ... --filter_method none \\
-      [--resume state_dict.pt] [--outdir ...]
+  dmvsnet-torch --test --preset dtu_test --datapath ... [--resume state_dict.pt] [--outdir ...]
+  dmvsnet-torch --test --preset tank_test --datapath ... --resume ...
+  dmvsnet-torch --preset blendedmvs_finetune --datapath ... --resume model_000015.ckpt
+  dmvsnet-torch --vis --depth_path out.pfm [--depth_img_save_dir DIR]
 
-Runs on CUDA unless ``--device cpu``.  The flags are those of the JAX
-package's CLI without its mesh and platform flags; fusion, ``--vis`` and
-the blendedmvs dataset are not ported yet.
+Runs on CUDA unless ``--device cpu`` (``--vis`` needs no device).  The
+flags are those of the JAX package's CLI without its mesh and platform
+flags.
 """
 
 from __future__ import annotations
@@ -87,7 +89,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fix_res", action="store_true", default=None)
     p.add_argument("--eval_batch", type=int, default=None,
                    help="reference views inferred per dispatch")
+    p.add_argument("--num_worker", type=int, default=None,
+                   help="fusion worker processes (pcd)")
     p.add_argument("--filter_method", default=None, choices=["pcd", "dypcd", "none"])
+    p.add_argument("--conf", type=float, nargs="+", default=None)
+    p.add_argument("--thres_view", type=int, default=None)
+    p.add_argument("--dist_base", type=float, default=None)
+    p.add_argument("--rel_diff_base", type=float, default=None)
+
+    # visualization
+    p.add_argument("--depth_path", default=None)
+    p.add_argument("--depth_img_save_dir", default=".")
     return p
 
 
@@ -102,11 +114,17 @@ def config_from_args(args: argparse.Namespace) -> Config:
 def main(argv=None) -> dict:
     """Runs the chosen mode and returns its summary: run_test's dict for
     ``--test``; {"mode", "device", "step", "history" | "val_avg"} for
-    training and ``--val``."""
+    training and ``--val``; {"mode": "vis", "png": path} for ``--vis``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.vis:
-        parser.error("--vis is not ported yet (ROADMAP.md, open items §1: CLI presets)")
+        if not args.depth_path:
+            parser.error("--vis needs --depth_path")
+        from dmvsnet_tpu_torch.engine.evaluate import run_visualization
+
+        out = run_visualization(args.depth_path, args.depth_img_save_dir)
+        print(f"saved {out}")
+        return {"mode": "vis", "png": out}
     cfg = config_from_args(args)
     if args.test:
         from dmvsnet_tpu_torch.engine.evaluate import run_test

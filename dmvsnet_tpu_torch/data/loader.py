@@ -26,9 +26,9 @@ def get_dataset(name: str, datapath: str, scans: list[str], nviews: int,
 
         return DTUTrainDataset(datapath, scans, nviews=nviews, mode=mode, **kwargs)
     if name == "blendedmvs":
-        raise NotImplementedError(
-            "dataset_name='blendedmvs' is not ported yet (ROADMAP.md, open items "
-            "§1: data/blendedmvs.py with the blendedmvs_finetune preset)")
+        from dmvsnet_tpu_torch.data.blendedmvs import BlendedMVSDataset
+
+        return BlendedMVSDataset(datapath, scans, nviews=nviews, mode=mode, **kwargs)
     if name == "general_eval":
         from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 

@@ -3,8 +3,10 @@
 Per scene: the T&T resolution override, a fresh eval dataset, the infer
 step per batch of reference views (the tail batch padded by repetition),
 and the reference-compatible outputs depth_est/*.pfm, confidence/*.pfm,
-cams/*_cam.txt, images/*.jpg.  Point-cloud fusion (pcd / dypcd) is not
-ported yet; ``filter_method`` must be "none".
+cams/*_cam.txt, images/*.jpg; then point-cloud fusion of every scan
+(``filter_method`` pcd or dypcd, on the host in numpy) into
+``outdir/pcd/*.ply``.  ``run_visualization`` renders one depth PFM as a
+PNG.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ from dmvsnet_tpu_torch.config import Config
 from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 from dmvsnet_tpu_torch.data.splits import resolve_scan_list
+from dmvsnet_tpu_torch.engine import colormap
 from dmvsnet_tpu_torch.engine.checkpoint import restore_weights
 from dmvsnet_tpu_torch.engine.steps import make_infer_step
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
-from dmvsnet_tpu_torch.fusion.tank_config import TANK_SCENE_CONFIG
+from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG, dypcd_filter, pcd_filter
 from dmvsnet_tpu_torch.models import MVSNet
 
 
@@ -45,18 +48,18 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
 
     Returns {"maps": depth maps written, "dispatch_seconds": wall seconds
     of each infer dispatch (host copy of the result included),
-    "device": the device}; under ``warp_impl="epipolar"`` also
-    "sweep_engaged": per dispatch {"stage1", "stage1_refine", ...: (B, V-1)
-    nested bool lists}, which (batch element, source view) of each cost pass
+    "device": the device, "fusion_seconds": wall seconds of the fusion of
+    all scans (0.0 without fusion), "ply": the fused point cloud of each
+    scan, in scan order ([] without fusion)}; under
+    ``warp_impl="epipolar"`` also "sweep_engaged": per dispatch {"stage1",
+    "stage1_refine", ...: (B, V-1) nested bool lists}, which (batch element, source view) of each cost pass
     took the rectified sweep (the others took the exact kernel).
     """
     device = resolve_device(device)
-    if cfg.filter_method in ("pcd", "dypcd"):
+    if cfg.filter_method not in ("pcd", "dypcd", "none", ""):
         raise NotImplementedError(
-            f"filter_method={cfg.filter_method!r}: point-cloud fusion is not "
-            "ported yet (ROADMAP.md, open items §1: pcd/dypcd fusion); use 'none'")
-    if cfg.filter_method not in ("none", ""):
-        raise NotImplementedError(f"filter_method={cfg.filter_method!r}")
+            f"filter_method={cfg.filter_method!r} (gipuma is disabled in the "
+            "reference too, filter/__init__.py:1)")
     # cuDNN defaults fp32 convolutions to TF32; the port is held to the
     # fp32 reference, so TF32 is off for convolutions and matmuls
     pin_fp32()
@@ -144,7 +147,44 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
                     maps += 1
         if cfg.fix_res:
             latched_hw = ds.latched_hw
-    summary = {"maps": maps, "dispatch_seconds": dispatch_seconds, "device": str(device)}
+
+    fused = cfg.filter_method in ("pcd", "dypcd")
+    t0 = time.perf_counter()
+    if fused:
+        fusion_args = {
+            "datapath": cfg.datapath, "outdir": cfg.outdir, "conf": tuple(cfg.conf),
+            "thres_view": cfg.thres_view, "dist_base": cfg.dist_base,
+            "rel_diff_base": cfg.rel_diff_base, "num_stage": len(cfg.ndepths),
+        }
+        if cfg.filter_method == "pcd":
+            pcd_filter(fusion_args, scans, cfg.num_worker)
+        else:
+            dypcd_filter(fusion_args, scans, 1)
+    summary = {"maps": maps, "dispatch_seconds": dispatch_seconds, "device": str(device),
+               "fusion_seconds": time.perf_counter() - t0 if fused else 0.0,
+               "ply": [ply_path(cfg.outdir, scan) for scan in scans] if fused else []}
     if model.warp_impl == "epipolar":
         summary["sweep_engaged"] = engaged
     return summary
+
+
+def ply_path(outdir: str, scan: str) -> str:
+    """Where fusion writes a scan's cloud: DTU's MATLAB naming for scanN,
+    else the scene name (the rule of the fusion workers' ``_scan_worker``)."""
+    name = (f"mvsnet{int(scan[4:]):03d}_l3.ply"
+            if scan.startswith("scan") and scan[4:].isdigit() else f"{scan}.ply")
+    return os.path.join(outdir, "pcd", name)
+
+
+def run_visualization(depth_path: str, save_dir: str = ".") -> str:
+    """PFM -> magma-colormapped PNG at the 95th percentile
+    (reference model.py:392-410); returns the PNG's path.  The colormap is
+    engine/colormap.py's, byte-equal to the JAX package's matplotlib one."""
+    from PIL import Image
+
+    depth, _ = io.read_pfm(depth_path)
+    rgb = colormap.magma_rgb(depth, depth.min(), np.percentile(depth, 95))
+    out = os.path.join(save_dir, "depth.png")
+    os.makedirs(save_dir, exist_ok=True)
+    Image.fromarray((rgb * 255).astype(np.uint8)).save(out)
+    return out

@@ -42,8 +42,12 @@ from dmvsnet_tpu_torch.ops import epipolar_sweep, warp_correlate
 
 # Per-(stage, pass) epipolar routing, consulted only under
 # warp_impl="epipolar": the stage indices whose main / refine cost pass take
-# the rectified 1-D sweep; the others keep the exact kernel.  PERF.md has
-# the per-pass A/B on an H100 that these defaults come from.
+# the rectified 1-D sweep; the others keep the exact kernel.  The defaults
+# (0, 1) / () are the JAX package's TPU routing, kept so that
+# --warp_impl epipolar routes as the JAX package does.  They were not chosen
+# on the card: on an H100 the whole epipolar pass lost to the exact pass at
+# every (stage, pass) (chip_smoke.py's "ab" lines; PERF.md §6), which is why
+# warp_impl="auto" never takes it.  Change them only from "ab" lines.
 EPIPOLAR_MAIN_STAGES: tuple[int, ...] = (0, 1)
 EPIPOLAR_REFINE_STAGES: tuple[int, ...] = ()
 

@@ -4,7 +4,9 @@ Generates geometrically consistent multi-view inputs: a textured
 fronto-parallel plane (or a smooth height-field) at DTU-scale depths
 (425-935 mm) rendered into V translated pinhole cameras.  Used where the
 real datasets aren't on disk: unit tests and chip_smoke.py.  A copy of
-dmvsnet_tpu.utils.synthetic.
+dmvsnet_tpu.utils.synthetic, plus two helpers of the port's own at the end:
+``orbit_camera_stack`` (cameras that rotate by degrees about several axes,
+as a DTU rig's do) and ``write_blendedmvs_tree``.
 """
 
 from __future__ import annotations
@@ -179,3 +181,88 @@ def make_batch(
         "depth": gt_ms,
         "mask": mask_ms,
     }
+
+
+def _rotation(yaw: float, pitch: float, roll: float) -> np.ndarray:
+    """Rz(roll) @ Rx(pitch) @ Ry(yaw), angles in radians."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cr, sr = np.cos(roll), np.sin(roll)
+    ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+    rz = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]])
+    return rz @ rx @ ry
+
+
+def orbit_camera_stack(n_views: int, fx: float, fy: float, cx: float, cy: float,
+                       depth: float = 600.0, step_deg=(4.0, 2.5, 0.5)) -> np.ndarray:
+    """(V, 2, 4, 4) cameras on an arc around the point (0, 0, depth) on the
+    reference camera's axis, each turned to look at it.
+
+    View 0 is the reference (identity).  View i sits k = ceil(i/2) steps out,
+    on alternate sides: yaw, pitch and roll of +-k * ``step_deg`` degrees
+    (about y, x and z), so a view rotates by degrees about several axes as a
+    DTU rig's cameras do (4.7 degrees a step by default: baselines of 49 and
+    98 mm at depth 600 for the first four sources).  The camera centre is
+    ``depth`` from the point along the view's axis."""
+    cams = []
+    target = np.array([0.0, 0.0, depth])
+    for i in range(n_views):
+        k = (i + 1) // 2
+        sign = 1.0 if i % 2 else -1.0
+        yaw, pitch, roll = (np.deg2rad(sign * k * a) for a in step_deg)
+        rot = _rotation(yaw, pitch, roll)
+        centre = target - depth * rot.T @ np.array([0.0, 0.0, 1.0])
+        cam = camera_stack(fx, fy, cx, cy)
+        cam[0, :3, :3] = rot
+        cam[0, :3, 3] = -rot @ centre
+        cams.append(cam)
+    return np.stack(cams).astype(np.float32)
+
+
+def camera_set(kind: str, n_views: int, height: int, width: int, tx: float = -5.0,
+               angle: float = 0.01) -> np.ndarray:
+    """(V, 2, 4, 4) cameras with focal length 1.2 * width and the principal
+    point at the image centre: "translate" (view i at x = ``tx`` * i, turned
+    ``angle`` * i rad about y) or "orbit" (``orbit_camera_stack``: rotated by
+    degrees about x, y and z, as a DTU rig's cameras are)."""
+    f, cx, cy = 1.2 * width, width / 2, height / 2
+    if kind == "orbit":
+        return orbit_camera_stack(n_views, f, f, cx, cy)
+    if kind != "translate":
+        raise ValueError(f"camera set {kind!r}: expected 'translate' or 'orbit'")
+    return np.stack([camera_stack(f, f, cx, cy, tx=tx * i, angle=angle * i)
+                     for i in range(n_views)])
+
+
+def write_blendedmvs_tree(
+    root: str, scan: str = "synthetic_plane", n_views: int = 7, height: int = 576,
+    width: int = 768, depth: float = 600.0, seed: int = 0, ndepths: int = 128,
+) -> None:
+    """Materialize a BlendedMVS-format (low-res) scene of a textured plane:
+    {scan}/blended_images/*.jpg, {scan}/cams/*_cam.txt at full-resolution
+    intrinsics with the depth line (depth_min, interval, ndepths,
+    depth_max) spanning depth +-100..+250 mm, {scan}/cams/pair.txt and
+    {scan}/rendered_depth_maps/*.pfm (the layout read by
+    data.blendedmvs.BlendedMVSDataset)."""
+    import os
+
+    from PIL import Image
+
+    from dmvsnet_tpu_torch.data import io as data_io
+
+    imgs, cams, gt = render_plane_views(height, width, n_views, depth, seed)
+    scan_dir = os.path.join(root, scan)
+    os.makedirs(os.path.join(scan_dir, "blended_images"), exist_ok=True)
+    dmin, dmax = depth - 100.0, depth + 250.0
+    pairs = []
+    for v in range(n_views):
+        Image.fromarray((imgs[v] * 255).astype(np.uint8)).save(
+            os.path.join(scan_dir, "blended_images", f"{v:08d}.jpg"), quality=95)
+        cam = cams[v].copy()
+        cam[1, 3, :] = [dmin, (dmax - dmin) / ndepths, ndepths, dmax]
+        data_io.write_cam_file(os.path.join(scan_dir, "cams", f"{v:08d}_cam.txt"), cam)
+        # translated views of a fronto-parallel plane all see it at ``depth``
+        data_io.save_pfm(os.path.join(scan_dir, "rendered_depth_maps", f"{v:08d}.pfm"), gt)
+        pairs.append((v, [s for s in range(n_views) if s != v]))
+    data_io.write_pair_file(os.path.join(scan_dir, "cams", "pair.txt"), pairs)

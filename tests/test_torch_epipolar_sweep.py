@@ -23,12 +23,12 @@ from dmvsnet_tpu.core import sampling as jsampling
 from dmvsnet_tpu.ops import warp as jwarp
 from dmvsnet_tpu.ops.pallas import epipolar_sweep as jes
 from dmvsnet_tpu.ops.pallas import warp_correlate as jwc
-from dmvsnet_tpu.utils import synthetic as jsyn
 from dmvsnet_tpu_torch.core import epipolar as tepi
 from dmvsnet_tpu_torch.core import geometry as tgeo
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as tes
 from dmvsnet_tpu_torch.ops import warp_correlate as twc
+from dmvsnet_tpu_torch.utils import synthetic as tsyn
 
 H, W = 32, 64
 RESAMPLE_TOL = 1e-5
@@ -48,8 +48,7 @@ def _feats(rng, c, views):
 
 
 def _cams(views=2, angle=0.0, baseline=80.0):
-    return np.stack([jsyn.camera_stack(1.2 * W, 1.2 * W, W / 2, H / 2, tx=-baseline * i,
-                                       angle=angle * i) for i in range(views)])
+    return tsyn.camera_set("translate", views, H, W, tx=-baseline, angle=angle)
 
 
 def _rels(cams):
@@ -226,6 +225,37 @@ def test_rotated_pair_matches_jax_pass(rng, c):
     assert np.abs(got - _exact(feats, cams, dv)).max() > 1e-3
 
 
+def test_orbit_cameras_match_jax_sweep(rng):
+    """Four views rotated by degrees about several axes (as a DTU rig's
+    are): the port's geometry gates decide as the JAX package's geometry
+    gates (scales and epipole distance of its own rectification), and the
+    volume equals the sum over the views of the JAX package's plain
+    rectified sweep.  The JAX pass itself falls back on these views for its
+    TPU window spans alone, a gate the port does not have (ROADMAP §3,
+    stated differences), so its volume is not the reference here."""
+    feats, cams, dpl = _feats(rng, 16, 4), tsyn.camera_set("orbit", 4, H, W), 8
+    dv = _inv_fan(dpl)
+    with torch.no_grad():
+        cost, flags = tes.aggregate_cost_volume_epipolar(
+            torch.from_numpy(feats), torch.from_numpy(cams[None].astype(np.float32)),
+            torch.from_numpy(dv))
+    diag = float((H * H + W * W) ** 0.5)
+    want_flags, want = [], 0.0
+    inv_lo = np.full((H, W), 1.0 / dv[0, 0, 0, 0], np.float32)
+    inv_step = np.full((H, W), (1.0 / dv[0, -1, 0, 0] - inv_lo[0, 0]) / (dpl - 1), np.float32)
+    for v, rel in enumerate(_rels(cams), start=1):
+        rect = jepi.compute_rectification(jnp.asarray(rel), H, W)
+        scales = np.abs(np.asarray(rect.scales))
+        want_flags.append(bool((scales > tes.SCALE_MIN).all() and (scales < tes.SCALE_MAX).all()
+                               and float(rect.epipole_dist) > tes.EPIPOLE_MARGIN * diag))
+        want = want + np.asarray(jepi.rectified_sweep_corr_jnp(
+            jnp.asarray(feats[0, v]), jnp.asarray(feats[0, 0]), jnp.asarray(rel),
+            jnp.asarray(inv_lo), jnp.asarray(inv_step), dpl))
+    assert flags[0].tolist() == want_flags == [True, True, True]
+    np.testing.assert_allclose(cost[0].numpy(), want, atol=SWEEP_TOL, rtol=0)
+    assert np.abs(cost.numpy() - _exact(feats, cams, dv)).max() > 1e-3
+
+
 def test_pure_translation_is_exact(rng):
     """Two source views, zero relative rotation: the rectification is the
     identity, so the sweep equals the exact pass as well."""
@@ -356,7 +386,8 @@ def test_cuda_resample_and_sweep1d_match_plain_on_card(rng):
         slow = start + step * np.arange(d)[None, :, None, None]
         return [torch.from_numpy(f.astype(np.float32)).to(dev) for f in (noise, slow)]
 
-    for n, h, w, d in ((n, h, w, d), (1, 7, 57, 1), (1, 9, 61, 7), (2, 5, 37, 48)):
+    for n, h, w, d in ((n, h, w, d), (1, 7, 57, 1), (1, 9, 61, 7), (2, 5, 37, 48),
+                       (1, 6, 41, 64), (2, 5, 35, 32)):
         for c in twc.CHANNELS:
             src_r, ref_r = (torch.from_numpy(rng.normal(size=(n, h, w, c)).astype(np.float32))
                             .to(dev) for _ in range(2))
@@ -369,3 +400,40 @@ def test_cuda_resample_and_sweep1d_match_plain_on_card(rng):
                 assert ((px < 0).any() and (px > w - 1).any()), "the fan stays inside the row"
                 err = (got - want).abs().max().item()
                 assert err <= 1e-4 * max(1.0, want.abs().max().item()), (c, n, h, w, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cams", ["translate", "orbit"])
+@pytest.mark.parametrize("d", [8, 32, 64])
+def test_cuda_epipolar_pass_matches_plain_on_card(rng, cams, d):
+    """The whole epipolar pass on the card (gates, four resamples, the sweep,
+    the exact kernel for the views that fall back) against the same pass
+    with the plain versions of its kernels, on 11 views (the tank_test
+    view count) under both camera sets, with D = 8 and the tank_test
+    sweeps' 64 and 32 planes: the same flags, costs within 1e-4 *
+    max(1, max|plain|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain versions")
+    dev = torch.device("cuda")
+    views, c = 11, 16
+    cam = tsyn.camera_set(cams, views, H, W, tx=-18.0)
+    feats = torch.from_numpy(_feats(rng, c, views)).to(dev)
+    proj2 = torch.from_numpy(cam[None].astype(np.float32)).to(dev)
+    dv = torch.from_numpy(_inv_fan(d)).to(dev)
+    with torch.no_grad():
+        before = dict(tes.LAUNCHES)
+        got, flags = tes.aggregate_cost_volume_epipolar(feats, proj2, dv)
+        launched = {k: tes.LAUNCHES[k] - before[k] for k in before}
+        saved = tes.resample, tes.sweep1d, twc.warp_correlate
+        tes.resample, tes.sweep1d = tes.resample_plain, tes.sweep1d_plain
+        twc.warp_correlate = twc.warp_correlate_plain
+        try:
+            want, want_flags = tes.aggregate_cost_volume_epipolar(feats, proj2, dv)
+        finally:
+            tes.resample, tes.sweep1d, twc.warp_correlate = saved
+    torch.cuda.synchronize()
+    assert torch.equal(flags, want_flags) and flags.shape == (1, views - 1)
+    if flags.any():
+        assert launched["resample"] == 4 and launched["sweep1d"] == 1, launched
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol, (flags.tolist(), cams, d)

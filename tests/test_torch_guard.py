@@ -1,12 +1,17 @@
 """Rules of the port that hold whatever the numbers:
 
-* no module of dmvsnet_tpu_torch imports jax, flax, optax, orbax or the
-  dmvsnet_tpu package (an ast walk over every source file);
+* no module of dmvsnet_tpu_torch, no scripts/torch_* file and not
+  chip_smoke.py imports jax, flax, optax, orbax or the dmvsnet_tpu package
+  (an ast walk over every source file);
+* the torch launchers scripts/torch_*.sh parse and run the port's CLI at
+  their recipe's preset;
 * entry points run on CUDA unless told otherwise, and raise on a machine
   without CUDA instead of carrying on on the CPU;
-* options the port does not run yet raise and name the ROADMAP item;
+* options the port does not run yet raise and name the ROADMAP item, and a
+  filter_method no package implements raises;
 * the CLI's --test path writes depth maps on --device cpu, its default mode
-  is training, and --vis still errors;
+  is training, and --vis renders a depth map (tests/test_torch_fusion.py
+  holds fusion and the render against the JAX package);
 * warp_impl="epipolar" builds, is never what "auto" means, reports which
   pairs took the sweep, and takes no sweep in training mode;
 * the seeded initialisation depends on the seed alone.
@@ -14,17 +19,18 @@
 
 import ast
 import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import dmvsnet_tpu_torch
 from dmvsnet_tpu_torch import cli, resolve_device
 from dmvsnet_tpu_torch.config import preset
 from dmvsnet_tpu_torch.data import io
-from dmvsnet_tpu_torch.data.loader import get_dataset
 from dmvsnet_tpu_torch.engine.evaluate import build_model, run_test
 from dmvsnet_tpu_torch.engine.train import Trainer
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
@@ -33,6 +39,7 @@ from dmvsnet_tpu_torch.utils import synthetic
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dmvsnet_tpu"}
 PORT_ROOT = Path(dmvsnet_tpu_torch.__file__).parent
+REPO = PORT_ROOT.parent
 
 
 def _imported_roots(path: Path):
@@ -49,15 +56,36 @@ def test_port_never_imports_jax_or_the_jax_package():
     files = sorted(PORT_ROOT.rglob("*.py"))
     assert len(files) > 25
     names = {str(f.relative_to(PORT_ROOT)) for f in files}
-    # the training slice's modules are under the walk
+    # the training slice's and the recipes slice's modules are under the walk
     assert {"losses/mvs_loss.py", "losses/metrics.py", "losses/alt_losses.py",
             "engine/state.py", "engine/steps.py", "engine/checkpoint.py", "engine/train.py",
-            "engine/imagery.py", "data/dtu.py", "data/loader.py"} <= names
-    bad = [f"{f.relative_to(PORT_ROOT)}:{line} imports {root}"
+            "engine/imagery.py", "data/dtu.py", "data/loader.py", "data/blendedmvs.py",
+            "fusion/__init__.py", "fusion/ply.py", "fusion/geometry_np.py", "fusion/pcd.py",
+            "fusion/dypcd.py", "fusion/dtu_eval.py", "fusion/tank_config.py"} <= names
+    # and so are the smoke run and the port's scripts
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    assert [f.name for f in scripts] == ["torch_dtu_eval.py"]
+    files += [REPO / "chip_smoke.py", *scripts]
+    bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f) if root in FORBIDDEN]
     assert not bad, bad
+    # the port runs where matplotlib is not installed: --vis uses engine/colormap.py
+    assert not [f for f in files for root, _ in _imported_roots(f) if root == "matplotlib"]
     # the walk itself sees the allowed package name as distinct
     assert "dmvsnet_tpu_torch" not in FORBIDDEN
+
+
+@pytest.mark.parametrize("recipe", ["dtu_train", "dtu_test", "tank_test",
+                                    "blendedmvs_finetune"])
+def test_torch_launchers_run_the_port_cli_at_their_preset(recipe):
+    """scripts/torch_<recipe>.sh parses (bash -n) and runs the port's CLI
+    with --preset <recipe>; the JAX launcher beside it runs the JAX CLI."""
+    path = REPO / "scripts" / f"torch_{recipe}.sh"
+    subprocess.run(["bash", "-n", str(path)], check=True, timeout=60)
+    text = path.read_text()
+    assert "python -m dmvsnet_tpu_torch.cli" in text and f"--preset {recipe}" in text
+    assert "dmvsnet_tpu.cli" not in text and os.access(path, os.X_OK)
+    assert "python -m dmvsnet_tpu.cli" in (REPO / "scripts" / f"{recipe}.sh").read_text()
 
 
 @pytest.fixture
@@ -107,9 +135,9 @@ def test_unported_options_raise(scene):
         build_model(_cfg(scene, costreg_dtype="bfloat16"), cpu)
     with pytest.raises(ValueError, match="CUDA device"):
         build_model(_cfg(scene, warp_impl="cuda"), cpu)
-    for method in ("pcd", "dypcd"):
-        with pytest.raises(NotImplementedError, match="fusion"):
-            run_test(_cfg(scene).replace(filter_method=method), device="cpu")
+    with pytest.raises(NotImplementedError, match="gipuma"):
+        run_test(_cfg(scene).replace(filter_method="gipuma"), device="cpu")
+    assert not os.path.exists(scene / "out")
     assert build_model(_cfg(scene), cpu).warp_impl == "torch"
     # training options that wait for later slices
     train_cfg = preset("dtu_train", datapath=str(scene / "data"))
@@ -117,8 +145,6 @@ def test_unported_options_raise(scene):
         build_train_model(train_cfg.replace(remat=True), cpu)
     with pytest.raises(NotImplementedError, match="fp32 only"):
         build_train_model(train_cfg.replace(compute_dtype="bfloat16"), cpu)
-    with pytest.raises(NotImplementedError, match="blendedmvs"):
-        get_dataset("blendedmvs", str(scene / "data"), ["scan1"], 5, "train")
     with pytest.raises(NotImplementedError, match="adaptive"):
         build_train_model(train_cfg.replace(agg_mode="adaptive"), cpu)
     model = build_train_model(train_cfg, cpu)
@@ -165,8 +191,11 @@ def test_cli_test_path_on_cpu(scene):
     conf, _ = io.read_pfm(str(scene / "out/scan1/confidence/00000001.pfm"))
     assert depth.shape == conf.shape == (64, 96)
     assert np.isfinite(depth).all() and np.isfinite(conf).all()
+    png = cli.main(["--vis", "--depth_path", str(scene / "out/scan1/depth_est/00000001.pfm"),
+                    "--depth_img_save_dir", str(scene / "vis")])["png"]
+    assert Image.open(png).size == (96, 64)
     with pytest.raises(SystemExit):
-        cli.main(["--vis", "--device", "cpu"])  # visualisation is not ported
+        cli.main(["--vis"])  # nothing to render
     # without a mode flag the CLI trains: on the eval scene it gets as far as
     # looking for the DTU training tree
     with pytest.raises(FileNotFoundError, match="pair.txt"):

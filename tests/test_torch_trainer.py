@@ -151,7 +151,7 @@ def test_trained_checkpoint_goes_back_to_the_jax_naming(trained):
         jax_tree_from_state_dict({"head.weight": np.zeros((2, 2, 1, 1), np.float32)})
 
 
-def test_dtu_sample_and_epoch_order_equal_the_jax_package(dtu_tree):
+def test_dtu_sample_and_epoch_order_equal_the_jax_package(dtu_tree, tmp_path):
     kw = dict(nviews=3, ndepths=16, interval_scale=1.06, img_size=(64, 160))
     ours = DTUTrainDataset(dtu_tree, ["scan1"], mode="train", **kw)
     theirs = JDTUTrainDataset(dtu_tree, ["scan1"], mode="train", **kw)
@@ -191,8 +191,14 @@ def test_dtu_sample_and_epoch_order_equal_the_jax_package(dtu_tree):
     for x, y in zip(batches_a, batches_b):
         check(x, y)
     assert tloader.Loader(ours, 2, shuffle=False).num_hosts == 1  # one host by default
-    with pytest.raises(NotImplementedError, match="blendedmvs"):
-        tloader.get_dataset("blendedmvs", dtu_tree, ["scan1"], 3, "train")
+    # the factory's other datasets: blendedmvs builds as the JAX package's
+    # does (samples held in tests/test_torch_blendedmvs.py)
+    bmvs = str(tmp_path / "blendedmvs")
+    synthetic.write_blendedmvs_tree(bmvs, "scene", n_views=3, height=32, width=64, ndepths=8)
+    a, b = (m.get_dataset("blendedmvs", bmvs, ["scene"], 3, "train", ndepths=8, seed=1)
+            for m in (tloader, jloader))
+    assert type(a).__name__ == type(b).__name__ == "BlendedMVSDataset"
+    check(a[2], b[2])
 
 
 def test_average_meter_accumulates_without_reading(rng):

@@ -21,6 +21,7 @@ from dmvsnet_tpu.utils import synthetic as jsyn
 from dmvsnet_tpu_torch.core import geometry as tgeo
 from dmvsnet_tpu_torch.ops import warp as twarp
 from dmvsnet_tpu_torch.ops import warp_correlate as twc
+from dmvsnet_tpu_torch.utils import synthetic as tsyn
 
 TOL = 1e-5
 PALLAS_TOL = 2e-4
@@ -142,22 +143,43 @@ def test_kernel_wrapper_rejects_grad_and_bad_shapes(rng):
         twc.warp_correlate(feats, rel, depth.double())
 
 
+CAMERA_SETS = ["translate", "orbit"]
+
+
+@pytest.mark.parametrize("kind", CAMERA_SETS)
+def test_camera_set_is_the_cameras_it_names(kind):
+    """utils/synthetic.camera_set, the camera sets of the card tests and of
+    chip_smoke.py: "translate" is the JAX package's camera_stack per view,
+    "orbit" the port's orbit_camera_stack; another name raises."""
+    v, h, w = 5, 40, 56
+    got = tsyn.camera_set(kind, v, h, w, tx=-12.0)
+    if kind == "orbit":
+        want = tsyn.orbit_camera_stack(v, 1.2 * w, 1.2 * w, w / 2, h / 2)
+    else:
+        want = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-12.0 * i,
+                                           angle=0.01 * i) for i in range(v)])
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="camera set"):
+        tsyn.camera_set("spiral", v, h, w)
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_on_card(rng):
+@pytest.mark.parametrize("cams", CAMERA_SETS)
+def test_cuda_kernel_matches_plain_on_card(rng, cams):
     """The CUDA kernel vs its plain version on the card, every channel
-    width, per-pixel hypotheses including negative depths.  Tolerance
-    1e-4 * max(1, max|plain|): the coordinates round as the plain version's
-    do, but the channel sums use FMAs in another order."""
+    width, per-pixel hypotheses including negative depths, under both
+    camera sets.  Tolerance 1e-4 * max(1, max|plain|): the coordinates
+    round as the plain version's do, but the channel sums use FMAs in
+    another order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    b, v, h, w, d = 2, 5, 40, 56, 6
+    proj2 = torch.from_numpy(
+        np.stack([tsyn.camera_set(cams, v, h, w)] * b).astype(np.float32)).to(dev)
     for c in twc.CHANNELS:
-        b, v, h, w, d = 2, 5, 40, 56, 6
         feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
-        cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-5.0 * i,
-                                           angle=0.01 * i) for i in range(v)])
-        proj2 = torch.from_numpy(np.stack([cams, cams]).astype(np.float32)).to(dev)
         dv = rng.uniform(-100, 900, (b, d, h, w)).astype(np.float32)
         dv[:, 0, 0, :4] = 0.0  # the z == 0 guard
         dv = torch.from_numpy(dv).to(dev)
@@ -189,21 +211,24 @@ def _branch_fans(rng, kind, b, d, h, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cams", CAMERA_SETS)
 @pytest.mark.parametrize("channels", [8, 16, 32])
 @pytest.mark.parametrize("fan", ["smooth", "noise", "outside"])
-def test_cuda_kernel_branches_on_card(rng, channels, fan):
+def test_cuda_kernel_branches_on_card(rng, channels, fan, cams):
     """The kernel's branches against its plain version on the card: every
     C, H and W that are not multiples of a tile, D from 1 to 7 (D = 4 and
-    plane counts the per-C plane group does not divide), fans whose taps
-    fit a window, overflow it, or leave the image; tolerance as above."""
+    plane counts the per-C plane group does not divide), and the 11-view
+    tank_test sweeps of stages 1 and 2 (D = 64 and 32); fans whose taps fit
+    a window, overflow it, or leave the image; both camera sets; tolerance
+    as above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
     dev = torch.device("cuda")
+    kind = cams
     for b, v, h, w, d in ((1, 2, 37, 53, 1), (2, 5, 40, 56, 4), (2, 3, 29, 70, 5),
-                          (1, 4, 16, 40, 7)):
+                          (1, 4, 16, 40, 7), (1, 11, 22, 44, 64), (1, 11, 26, 50, 32)):
         feats = torch.from_numpy(rng.normal(size=(b, v, h, w, channels)).astype(np.float32))
-        cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-5.0 * i,
-                                           angle=0.01 * i) for i in range(v)])
+        cams = tsyn.camera_set(kind, v, h, w)
         proj2 = torch.from_numpy(np.broadcast_to(cams, (b, *cams.shape)).astype(np.float32))
         dv = torch.from_numpy(_branch_fans(rng, fan, b, d, h, w))
         got = twc.aggregate_cost_volume(feats.to(dev), proj2.to(dev), dv.to(dev))
@@ -218,17 +243,17 @@ def test_cuda_kernel_branches_on_card(rng, channels, fan):
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_on_a_view_subset(rng):
+@pytest.mark.parametrize("cams", CAMERA_SETS)
+def test_cuda_kernel_on_a_view_subset(rng, cams):
     """The epipolar path's per-view fallback calls the kernel on one source
     view of one batch element: a (1, 2, H, W, C) copy of a view subset
-    equals the plain version of the same subset."""
+    equals the plain version of the same subset, under both camera sets."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
     dev = torch.device("cuda")
     b, v, h, w, c, d = 2, 5, 33, 45, 16, 6
     feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
-    cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-5.0 * i,
-                                       angle=0.01 * i) for i in range(v)])
+    cams = tsyn.camera_set(cams, v, h, w)
     proj2 = torch.from_numpy(np.stack([cams, cams]).astype(np.float32)).to(dev)
     dv = torch.from_numpy(_branch_fans(rng, "smooth", b, d, h, w)).to(dev)
     for bi, view in ((0, 1), (1, 3)):

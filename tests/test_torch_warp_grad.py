@@ -24,9 +24,11 @@ from dmvsnet_tpu.ops.pallas.warp_correlate import aggregate_cost_volume_pallas
 from dmvsnet_tpu.utils import synthetic as jsyn
 from dmvsnet_tpu_torch.core import geometry as tgeo
 from dmvsnet_tpu_torch.ops import warp_correlate as twc
+from dmvsnet_tpu_torch.utils import synthetic as tsyn
 
 XLA_TOL = 1e-5
 PALLAS_TOL = 5e-4
+CAMERA_SETS = ["translate", "orbit"]
 
 
 def _case(rng, c, views, b=1, h=24, w=160, d=4):
@@ -142,22 +144,22 @@ def test_out_of_image_fans_give_finite_zero_contributions(rng):
 
 
 @pytest.mark.cuda
-def test_cuda_adjoint_kernels_match_plain_on_card(rng):
+@pytest.mark.parametrize("cams", CAMERA_SETS)
+def test_cuda_adjoint_kernels_match_plain_on_card(rng, cams):
     """Both adjoint CUDA kernels vs autograd of the plain forward on the
     card, every channel width, per-pixel hypotheses including zero and
-    negative depths, through the autograd.Function.  Tolerance 1e-4 *
-    max(1, max|plain|): same taps and weights bit for bit, sums in another
-    order (and, for the scatter, in an order that varies run to run)."""
+    negative depths, through the autograd.Function, under both camera sets.
+    Tolerance 1e-4 * max(1, max|plain|): same taps and weights bit for bit,
+    sums in another order (and, for the scatter, in an order that varies
+    run to run)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
     dev = torch.device("cuda")
+    b, v, h, w, d = 2, 5, 40, 56, 6
+    rel = tgeo.relative_projections(torch.from_numpy(
+        np.stack([tsyn.camera_set(cams, v, h, w)] * b).astype(np.float32)).to(dev))
     for c in twc.CHANNELS:
-        b, v, h, w, d = 2, 5, 40, 56, 6
         feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
-        cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=-5.0 * i,
-                                           angle=0.01 * i) for i in range(v)])
-        rel = tgeo.relative_projections(
-            torch.from_numpy(np.stack([cams, cams]).astype(np.float32)).to(dev))
         dv = rng.uniform(-100, 900, (b, d, h, w)).astype(np.float32)
         dv[:, 0, 0, :4] = 0.0  # the z == 0 guard
         depth = torch.from_numpy(dv).to(dev)
@@ -193,11 +195,10 @@ def _branch_fans(rng, kind, b, d, h, w):
     return dv.astype(np.float32)
 
 
-def _card_case(rng, c, b, v, h, w, d, fan, tx=-5.0):
+def _card_case(rng, c, b, v, h, w, d, fan, tx=-5.0, cams="translate"):
     dev = torch.device("cuda")
     feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
-    cams = np.stack([jsyn.camera_stack(1.2 * w, 1.2 * w, w / 2, h / 2, tx=tx * i,
-                                       angle=0.01 * i) for i in range(v)])
+    cams = tsyn.camera_set(cams, v, h, w, tx=tx)
     rel = tgeo.relative_projections(torch.from_numpy(
         np.broadcast_to(cams, (b, *cams.shape)).astype(np.float32)).to(dev))
     depth = torch.from_numpy(_branch_fans(rng, fan, b, d, h, w)).to(dev)
@@ -206,20 +207,24 @@ def _card_case(rng, c, b, v, h, w, d, fan, tx=-5.0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cams", CAMERA_SETS)
 @pytest.mark.parametrize("channels", [8, 16, 32])
 @pytest.mark.parametrize("fan", ["smooth", "noise", "outside"])
-def test_cuda_adjoint_branches_on_card(rng, channels, fan):
+def test_cuda_adjoint_branches_on_card(rng, channels, fan, cams):
     """Both adjoint kernels against autograd of the plain forward on the
     card, through the autograd.Function, at the scatter's branches: every
     C, H and W that are not multiples of its tile, D from 1 to 7, fans whose
     taps fit the window, overflow it, or leave the image; and deep sweeps,
     whose planes the reference gradient takes in runs with a ragged last
-    one: D = 17 and D = 48 (the s1 main sweep).  Tolerance as above."""
+    one: D = 17, D = 48 (the dtu s1 main sweep) and the 11-view tank_test
+    sweeps D = 64 and 32 (stages 1 and 2); both camera sets.  Tolerance as
+    above."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
     for b, v, h, w, d in ((1, 2, 37, 53, 1), (2, 5, 40, 56, 4), (2, 3, 29, 70, 5),
-                          (1, 4, 16, 40, 7), (2, 3, 13, 29, 17), (1, 5, 19, 37, 48)):
-        feats, rel, depth, cot = _card_case(rng, channels, b, v, h, w, d, fan)
+                          (1, 4, 16, 40, 7), (2, 3, 13, 29, 17), (1, 5, 19, 37, 48),
+                          (1, 11, 14, 30, 64), (1, 11, 18, 34, 32)):
+        feats, rel, depth, cot = _card_case(rng, channels, b, v, h, w, d, fan, cams=cams)
         f = feats.clone().requires_grad_()
         twc.warp_correlate(f, rel, depth).backward(cot)
         want = twc.warp_correlate_grad_plain(feats, rel, depth, cot)
