@@ -2,6 +2,9 @@
 
     python3 chip_smoke.py [--grad-trials N]
 
+(``--rank-task`` / ``--task-dir`` are for the ranks the script starts
+itself under torchrun in phases 16-18.)
+
 ``--grad-trials N`` repeats the gradient comparison of phase 6 on N freshly
 seeded sets of weights and prints it, to show its spread; nothing is held
 there.
@@ -100,12 +103,36 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    batch, their launches, finite losses, ms per step; then kernels 1-3 on
    the tensors of the first step's six cost passes ("inputs": "model
    blendedmvs");
-16. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+16. "dp_nccl": the training CLI under ``torchrun --nproc_per_node 1``
+   (nccl, world size 1, the model in DDP) on phase 6's tree: cli.main in
+   the rank (``--rank-task cli``): 3 steps, a validation batch, launches 6
+   + 6 + 6 per step, a checkpoint with phase 6's reference names; then
+   ``torchrun ... -m dmvsnet_tpu_torch.cli --resume`` as users launch it,
+   one more epoch of one step, exit 0, epoch 1 and step 4 in its
+   checkpoint;
+17. "dp_gloo": two ranks on the one card over gloo (``--rank-task gloo``;
+   NCCL refuses two ranks on one device): the Trainer at dtu_train on a dp
+   mesh, resuming phase 6's checkpoint, one element of the validation batch
+   per rank; one step under deterministic cuDNN against the one-process
+   step on the joined batch: loss (LOSS_RTOL), gradients (PATH_GRAD_RTOL,
+   beside phase 6's half-ulp yardstick), running statistics (STAT_RTOL),
+   scalars and gradients identical on both ranks, 6 + 6 + 6 launches per
+   rank; ms per step of the 2 ranks sharing one card over gloo and the
+   bytes all-reduced per step;
+18. "vp", the same two ranks: the dtu_test forward at 864x1152 (batch 2, two
+   source views per rank) against the one-process model (depth 0.05 mm,
+   confidence 1e-3), 6 kernel-1 launches per rank over 3 views each; then
+   one vp train step at dtu_train held as in phase 17; then kernel 1 as in
+   phase 3 on rank 0's six vp passes ("inputs": "model vp");
+19. a "phases" line (wall seconds of each phase), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
    inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
-   on each recipe path and "recipe_model_ms" on the recipes' tensors; the
-   scatter's atomic adds), the card line, and the
-   final {"ok": true, "device": {...}} line.
+   on each recipe path and "recipe_model_ms" on the recipes' tensors;
+   launches on the dp and vp paths and "vp_model_ms"; the scatter's atomic
+   adds), the card line, and the final {"ok": true, "device": {...}} line.
+
+A rank that fails or outlives RANKS_TIMEOUT_S fails its phase; torchrun
+stops the other ranks, and the script stops every process it started.
 
 Exits non-zero without a result when CUDA is unavailable, or when run
 outside the repository (the port is not importable).
@@ -115,28 +142,34 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import signal
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from PIL import Image
+from torch.nn.parallel import DistributedDataParallel
 
 from dmvsnet_tpu_torch import pin_fp32
 from dmvsnet_tpu_torch.core import epipolar, geometry, sampling
 from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
+from dmvsnet_tpu_torch.data.loader import make_loader
 from dmvsnet_tpu_torch.engine import checkpoint as ckpt_lib
 from dmvsnet_tpu_torch.engine.evaluate import build_model
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_train_step
 from dmvsnet_tpu_torch.engine.train import Trainer, build_model as build_train_model
+from dmvsnet_tpu_torch.engine.train import data_parallel
 from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG
 from dmvsnet_tpu_torch.fusion.dtu_eval import eval_scan
 from dmvsnet_tpu_torch.fusion.ply import read_ply
@@ -145,6 +178,7 @@ from dmvsnet_tpu_torch.models import mvsnet
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
+from dmvsnet_tpu_torch.parallel import init_multihost, make_mesh, replicate_tree, shard_batch
 from dmvsnet_tpu_torch.utils import synthetic
 from dmvsnet_tpu_torch import cli
 
@@ -202,6 +236,10 @@ BMVS_SCENE = "synthetic_plane"
 # 14 and 15): one pass set each, held like the others and reported in the
 # "kernels" line's max_abs_err and recipe_model_ms
 RECIPE_INPUTS = ("model gate", "model tank", "model blendedmvs")
+# phases 16-18, data parallelism on the one card: the ranks of each path
+# (torchrun's, killed at RANKS_TIMEOUT_S), and the running statistics' bound
+# of tests/test_torch_train_step.py (1e-4 * max(1, max|stat|))
+GLOO_RANKS, RANKS_TIMEOUT_S, STAT_RTOL = 2, 300.0, 1e-4
 
 
 def card_line() -> str:
@@ -210,6 +248,19 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def host_and_card() -> dict:
+    """What else loads the machine while ranks run: the host's 1-minute
+    load average, this process's reserved device memory, and nvidia-smi's
+    card-wide memory in use, utilisation, SM clock, power draw and
+    temperature."""
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,utilization.gpu,clocks.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    return dict(host_load_1min=os.getloadavg()[0], card=card,
+                this_process_reserved_gb=torch.cuda.memory_reserved() / 1e9)
 
 
 def time_ms(fn, reps: int, inner: int = 1) -> float:
@@ -1022,6 +1073,33 @@ def epipolar_path(dev, tmp: str) -> tuple[dict, dict, list]:
                          list(mvsnet.EPIPOLAR_REFINE_STAGES)]), launches, (resamples, sweeps)
 
 
+def grad_diff(got: dict, want: dict) -> dict:
+    """Relative L2 differences of two gradient sets: over all parameters,
+    the median and the worst parameter."""
+    per = sorted(((got[n] - g).norm().item() / max(g.norm().item(), 1e-30), n)
+                 for n, g in want.items())
+    num = sum((got[n] - g).double().square().sum().item() for n, g in want.items())
+    den = sum(g.double().square().sum().item() for g in want.values())
+    return dict(all_parameters=(num / den) ** 0.5, median_parameter=per[len(per) // 2][0],
+                worst_parameter=per[-1][0], worst_name=per[-1][1])
+
+
+def eval_argv(tmp: str) -> list[str]:
+    """The CLI arguments of phase 5 (dtu_test on its 5-view scene)."""
+    return ["--test", "--preset", "dtu_test", "--datapath", os.path.join(tmp, "data"),
+            "--testlist", "scan1", "--outdir", os.path.join(tmp, "out"),
+            "--filter_method", "none", "--eval_batch", str(B)]
+
+
+def train_argv(tmp: str, log_dir: str = "logs") -> list[str]:
+    """The CLI arguments of phase 6 (dtu_train on its tree: 6 train and 2
+    validation samples, one epoch), logging to tmp/log_dir."""
+    return ["--preset", "dtu_train", "--datapath", os.path.join(tmp, "dtu"),
+            "--trainlist", "scan1", "--testlist", "scan1",
+            "--log_dir", os.path.join(tmp, log_dir), "--max_train_samples", "6",
+            "--max_val_samples", "2", "--epochs", "1", "--summary_freq", "1"]
+
+
 def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
     """Phase 6: the trainer at the full dtu_train preset through the CLI,
     resume, kernel-path vs plain-path step (printed again for ``grad_trials``
@@ -1032,10 +1110,7 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
     synthetic.write_dtu_training_tree(data, scans=("scan1",), n_views=V, height=TRAIN_H,
                                       width=TRAIN_W, seed=0)
     print(f"training tree: {time.perf_counter() - t0:.2f}s", flush=True)
-    argv = ["--preset", "dtu_train", "--datapath", data, "--trainlist", "scan1",
-            "--testlist", "scan1", "--log_dir", os.path.join(tmp, "logs"),
-            "--max_train_samples", "6", "--max_val_samples", "2", "--epochs", "1",
-            "--summary_freq", "1"]
+    argv = train_argv(tmp)
     steps, val_batches = 3, 1
     cuda_build.reset_launches()
     t0 = time.perf_counter()
@@ -1078,15 +1153,6 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
         loss.backward()
         model.warp_impl = "cuda"
         return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
-
-    def grad_diff(got, want) -> dict:
-        """Relative L2 differences of two gradient sets."""
-        per = sorted(((got[n] - g).norm().item() / max(g.norm().item(), 1e-30), n)
-                     for n, g in want.items())
-        num = sum((got[n] - g).double().square().sum().item() for n, g in want.items())
-        den = sum(g.double().square().sum().item() for g in want.values())
-        return dict(all_parameters=(num / den) ** 0.5, median_parameter=per[len(per) // 2][0],
-                    worst_parameter=per[-1][0], worst_name=per[-1][1])
 
     def compare(model) -> dict:
         """One step's loss and gradients on ``model`` under deterministic
@@ -1409,11 +1475,310 @@ def blendedmvs_path(dev, tmp: str, checkpoint: str) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+@contextlib.contextmanager
+def counting_all_reduce():
+    """Within the block every ``torch.distributed.all_reduce`` of the port
+    (batch norm, loss counts, metrics, the vp cost sum) is counted: calls
+    and bytes, into the yielded dict.  DDP's gradient all_reduce runs in
+    C++ and is counted apart (its bytes are the parameters')."""
+    seen = {"calls": 0, "bytes": 0}
+    saved = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        seen["calls"] += 1
+        seen["bytes"] += tensor.numel() * tensor.element_size()
+        return saved(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = saved
+
+
+def held_step(net, model, step, optimizer, scheduler, batch) -> dict:
+    """One train step under deterministic cuDNN (the comparisons of phase 6
+    need it): global scalars, launches, gradients and new running statistics
+    (on the host), what the port all-reduced."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cuda_build.reset_launches()
+        with counting_all_reduce() as reduced:
+            scalars, _ = step(net, optimizer, scheduler, batch)
+            torch.cuda.synchronize()
+        launches = cuda_build.launches()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return dict(scalars={k: float(v) for k, v in scalars.items()}, launches=launches,
+                grads={n: p.grad.to("cpu", copy=True) for n, p in model.named_parameters()},
+                stats={k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+                       if ".running_" in k},
+                all_reduce=dict(port_calls=reduced["calls"], port_bytes=reduced["bytes"],
+                                ddp_gradient_bytes=sum(p.numel() * p.element_size()
+                                                       for p in model.parameters())))
+
+
+def step_ms(net, step, optimizer, scheduler, batch, n: int = 3) -> float:
+    """Median host-clock ms of ``n`` synchronised train steps, every rank
+    starting each step together."""
+    times = []
+    for _ in range(n):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(net, optimizer, scheduler, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def run_ranks(args: list[str], n: int, timeout_s: float = RANKS_TIMEOUT_S) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node n
+    *args`` from the repository root, in a session of its own: every process
+    of it is killed at the time limit, and a rank that fails or times out
+    raises.  Returns the output."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(n), *args]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0]
+        raise AssertionError(f"{n} rank(s) of {args[:4]} did not finish in {timeout_s} s:\n"
+                             f"{out[-6000:]}") from None
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{n} rank(s) of {args[:4]} exited {proc.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def rank_worker(task: str, task_dir: str) -> None:
+    """A rank of phase 16 ("cli": cli.main under torchrun, nccl) or of
+    phases 17-18 ("gloo": the dp step, the vp forward and the vp step, two
+    ranks on the one card over gloo).  Writes its results to task_dir."""
+    with open(os.path.join(task_dir, "task.json")) as f:
+        spec = json.load(f)
+    pin_fp32()
+    if task == "cli":
+        cuda_build.reset_launches()
+        summary = cli.main(spec["argv"])
+        out = dict(summary=summary, launches=cuda_build.launches(), backend=dist.get_backend(),
+                   world=dist.get_world_size(), device=torch.cuda.get_device_name(0))
+        with open(os.path.join(task_dir, f"rank{dist.get_rank()}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+        return
+    os.environ["LOCAL_RANK"] = "0"  # both ranks compute on the one card
+    info = init_multihost("cuda", backend="gloo", timeout_s=RANKS_TIMEOUT_S)
+    rank = info["process_index"]
+    out = dict(init=info, backend=dist.get_backend())
+
+    # phase 17: the dp Trainer (one element per rank) resuming phase 6
+    t0 = time.perf_counter()
+    train_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["train_argv"]))
+    trainer = Trainer(train_cfg.replace(resume=spec["checkpoint"],
+                                        log_dir=os.path.join(task_dir, "logs")))
+    if not (isinstance(trainer.net, DistributedDataParallel) and trainer.device.type == "cuda"
+            and trainer.mesh.shape["dp"] == GLOO_RANKS and trainer.model.warp_impl == "cuda"):
+        raise AssertionError(f"dp trainer: {type(trainer.net)} on {trainer.device}, "
+                             f"mesh {trainer.mesh.shape}, {trainer.model.warp_impl}")
+    batch = trainer.to_device(next(iter(trainer.val_loader)))
+    args = (trainer.net, trainer.train_step, trainer.optimizer, trainer.scheduler, batch)
+    out["dp"] = held_step(trainer.net, trainer.model, *args[1:])
+    out["dp"]["ms_per_step"] = step_ms(*args)
+    out["dp"]["seconds"] = time.perf_counter() - t0
+    val_ds, dev = trainer.val_ds, trainer.device
+    del trainer, batch, args
+    torch.cuda.empty_cache()
+
+    # phase 18: the dtu_test forward with two source views per rank ...
+    t0 = time.perf_counter()
+    mesh = make_mesh(n_data=1, n_view=GLOO_RANKS, device=dev)
+    test_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["test_argv"]))
+    model = replicate_tree(build_train_model(test_cfg, dev, mesh).eval())
+    imgs, proj, dv = load_batch(test_cfg, dev)
+    captured = []
+    cuda_build.reset_launches()
+    with (capture_calls(wc, "warp_correlate", captured, to="cpu") if rank == 0
+          else contextlib.nullcontext()), torch.inference_mode():
+        o = model(imgs, proj, dv)
+    torch.cuda.synchronize()
+    out["vp_forward"] = dict(launches=cuda_build.launches(), depth=o["depth"].cpu(),
+                             conf=o["photometric_confidence"].cpu(),
+                             views_per_launch=[c[0].shape[1] for c in captured])
+    if rank == 0:
+        torch.save(captured, os.path.join(task_dir, "vp_passes.pt"))
+    del captured, o
+
+    def forward():
+        with torch.inference_mode():
+            model(imgs, proj, dv)
+
+    out["vp_forward"]["ms_per_forward"] = time_ms(forward, 3)
+    out["vp_forward"]["seconds"] = time.perf_counter() - t0
+    del model, imgs, proj, dv
+    torch.cuda.empty_cache()
+
+    # ... and one dtu_train step on the joined batch, two source views per rank
+    t0 = time.perf_counter()
+    model = build_train_model(train_cfg, dev, mesh)
+    ckpt_lib.restore_weights(spec["checkpoint"], model)
+    net = data_parallel(model)
+    optimizer, scheduler = make_optimizer(model.parameters(), lambda n: 0.0)
+    step = make_train_step(tuple(train_cfg.dlossw), train_cfg.depth_mode, mesh)
+    joined = next(iter(make_loader(val_ds, B, "val")))
+    joined = shard_batch({k: v for k, v in joined.items() if k != "filename"}, mesh)
+    out["vp_step"] = held_step(net, model, step, optimizer, scheduler, joined)
+    out["vp_step"]["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(task_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_nccl(tmp: str, argv: list[str], checkpoint: str) -> dict:
+    """Phase 16: the training CLI under torchrun at world size 1 (nccl):
+    cli.main in the rank, on phase 6's tree (3 steps, a validation batch, a
+    checkpoint: 6 + 6 + 6 launches per step), then the CLI as users launch
+    it, ``torchrun ... -m dmvsnet_tpu_torch.cli --resume``, for one more
+    epoch of one step.  Both checkpoints carry the reference names of
+    phase 6's."""
+    t0 = time.perf_counter()
+    before = host_and_card()
+    d = os.path.join(tmp, "dp_nccl")
+    os.makedirs(d)
+    with open(os.path.join(d, "task.json"), "w") as f:
+        json.dump(dict(argv=argv), f)
+    run_ranks(["chip_smoke.py", "--rank-task", "cli", "--task-dir", d], 1)
+    with open(os.path.join(d, "rank0.json")) as f:
+        r = json.load(f)
+    steps = 3
+    expect_launches("dp nccl", r["launches"], warp_correlate=6 * (steps + 1),
+                    warp_correlate_grad_ref=6 * steps, warp_correlate_grad_src=6 * steps)
+    epoch = r["summary"]["history"][0]
+    if (r["backend"], r["world"], r["summary"]["step"]) != ("nccl", 1, steps) or not all(
+            np.isfinite(v) for v in (*epoch["train_avg"].values(), *epoch["val_avg"].values())):
+        raise AssertionError(f"dp nccl: {r}")
+    names = set(torch.load(checkpoint, map_location="cpu", weights_only=True)["model"])
+    first = torch.load(epoch["checkpoint"], map_location="cpu", weights_only=True)
+    t1 = time.perf_counter()
+    run_ranks(["-m", "dmvsnet_tpu_torch.cli", *argv, "--resume", epoch["checkpoint"],
+               "--max_train_samples", "2"], 1)
+    resume_s = time.perf_counter() - t1
+    second = torch.load(os.path.join(os.path.dirname(epoch["checkpoint"]), "model_000001.ckpt"),
+                        map_location="cpu", weights_only=True)
+    if not (set(first["model"]) == set(second["model"]) == names
+            and (first["epoch"], first["step"], second["epoch"], second["step"])
+            == (0, steps, 1, steps + 1)):
+        raise AssertionError(f"dp nccl checkpoints: epochs {first['epoch']}, {second['epoch']}, "
+                             f"steps {first['step']}, {second['step']}, reference names "
+                             f"{set(first['model']) == names}")
+    return dict(backend=r["backend"], world=r["world"], steps=r["summary"]["step"],
+                launches=r["launches"], train_avg=epoch["train_avg"], val_avg=epoch["val_avg"],
+                resumed_epoch=second["epoch"], resumed_step=second["step"],
+                resume_run_s=resume_s, before=before, seconds=time.perf_counter() - t0)
+
+
+def gloo_ranks(dev, tmp: str, train_argv: list[str], test_argv: list[str],
+               checkpoint: str, yardstick: dict, one_process_ms: float) -> tuple[dict, dict, list]:
+    """Phases 17 and 18: two ranks on the one card over gloo, held against
+    one process on the same inputs.  17, "dp": the Trainer at dtu_train on a
+    dp mesh, resuming phase 6's checkpoint, one element of the validation
+    batch per rank; one step under deterministic cuDNN: loss and gradients
+    against the one-process step on the joined batch (phase 6's bounds,
+    beside its half-ulp yardstick), running statistics, scalars identical on
+    both ranks, 6 + 6 + 6 launches per rank.  18, "vp": the dtu_test forward
+    at 864x1152 (batch 2, two source views per rank) against the
+    one-process model (depth 0.05 mm, confidence 1e-3), 6 kernel-1 launches
+    per rank over 3 views each; then one vp train step at dtu_train, held
+    as the dp step.  ``yardstick`` and ``one_process_ms`` (ms per step of
+    one process at batch 2) are phase 6's, printed beside.  Returns the two
+    lines and rank 0's six vp passes."""
+    train_cfg = cli.config_from_args(cli.build_parser().parse_args(train_argv))
+    ref_trainer = Trainer(train_cfg.replace(resume=checkpoint))
+    batch = ref_trainer.to_device(next(iter(ref_trainer.val_loader)))
+    ref = held_step(ref_trainer.net, ref_trainer.model, ref_trainer.train_step,
+                    ref_trainer.optimizer, ref_trainer.scheduler, batch)
+    del ref_trainer, batch
+    test_cfg = cli.config_from_args(cli.build_parser().parse_args(test_argv))
+    model = build_model(test_cfg, dev)
+    imgs, proj, dv = load_batch(test_cfg, dev)
+    with torch.inference_mode():
+        o = model(imgs, proj, dv)
+    ref_depth, ref_conf = o["depth"].cpu(), o["photometric_confidence"].cpu()
+    del model, imgs, proj, dv, o
+    torch.cuda.empty_cache()
+
+    d = os.path.join(tmp, "gloo_ranks")
+    os.makedirs(d)
+    with open(os.path.join(d, "task.json"), "w") as f:
+        json.dump(dict(train_argv=train_argv, test_argv=test_argv, checkpoint=checkpoint), f)
+    before = host_and_card()
+    t0 = time.perf_counter()
+    run_ranks(["chip_smoke.py", "--rank-task", "gloo", "--task-dir", d], GLOO_RANKS)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(GLOO_RANKS)]
+    per_step = dict(warp_correlate=6, warp_correlate_grad_ref=6, warp_correlate_grad_src=6)
+
+    def held(what: str) -> dict:
+        r0, r1 = (r[what] for r in ranks)
+        for i, r in enumerate(ranks):
+            expect_launches(f"{what} rank {i}", r[what]["launches"], **per_step)
+        loss = abs(r0["scalars"]["loss"] - ref["scalars"]["loss"]) / abs(ref["scalars"]["loss"])
+        grads = grad_diff(r0["grads"], ref["grads"])
+        stats = max(float((r[what]["stats"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                    for r in ranks for k, v in ref["stats"].items())
+        same = r0["scalars"] == r1["scalars"] and all(
+            torch.equal(g, r1["grads"][n]) for n, g in r0["grads"].items())
+        row = dict(loss=r0["scalars"]["loss"], loss_one_process=ref["scalars"]["loss"],
+                   loss_rel_diff=loss, grad_rel_l2_diff=grads,
+                   grad_rel_l2_diff_yardstick_phase_6=yardstick, stats_rel_diff=stats,
+                   scalars_and_grads_identical_on_ranks=same,
+                   launches_per_rank=[r[what]["launches"] for r in ranks],
+                   all_reduce_per_step=r0["all_reduce"], seconds=r0["seconds"])
+        if not (np.isfinite(r0["scalars"]["loss"]) and loss <= LOSS_RTOL and same
+                and stats <= STAT_RTOL
+                and all(grads[k] <= tol for k, tol in PATH_GRAD_RTOL.items())):
+            raise AssertionError(f"{what} against one process: {row}")
+        return row
+
+    dp = held("dp")
+    dp.update(ms_per_step_2_ranks_sharing_one_card_over_gloo=[r["dp"]["ms_per_step"]
+                                                               for r in ranks],
+              ms_per_step_one_process_phase_6=one_process_ms)
+    fwd = [r["vp_forward"] for r in ranks]
+    d_err = max(float((f["depth"] - ref_depth).abs().max()) for f in fwd)
+    c_err = max(float((f["conf"] - ref_conf).abs().max()) for f in fwd)
+    for i, f in enumerate(fwd):
+        expect_launches(f"vp forward rank {i}", f["launches"], warp_correlate=6)
+    if not (d_err <= 0.05 and c_err <= 1e-3 and fwd[0]["views_per_launch"] == [3] * 6):
+        raise AssertionError(f"vp forward: depth {d_err} mm, conf {c_err}, views per launch "
+                             f"{fwd[0]['views_per_launch']}")
+    vp = dict(forward=dict(depth_max_abs_diff_mm=d_err, conf_max_abs_diff=c_err,
+                           launches_per_rank=[f["launches"] for f in fwd],
+                           views_per_launch=fwd[0]["views_per_launch"],
+                           ms_per_forward_2_ranks_sharing_one_card_over_gloo=[
+                               f["ms_per_forward"] for f in fwd],
+                           seconds=fwd[0]["seconds"]),
+              step=held("vp_step"))
+    return (dict(init=[r["init"] for r in ranks], backend=ranks[0]["backend"],
+                 ranks_run_s=ranks_s, before=before, **dp), vp,
+            torch.load(os.path.join(d, "vp_passes.pt"), weights_only=False))
+
+
 def report(every: list[dict], eval_launches, train_launches, epi_launches,
-           fallback_launches, recipes: dict[str, dict]) -> None:
+           fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict]) -> None:
     """The "kernels" line, from the rows of the five kernels on synthetic
     and model inputs; ``recipes`` are the launch counts of each recipe path
-    of phases 11-15, each read just after the path ran from counts at 0."""
+    of phases 11-15, each read just after the path ran from counts at 0;
+    ``parallel`` those of phases 16-18 (per rank on the gloo paths)."""
 
     def rows_of(kernel, inputs, cameras="translate"):
         return [r for r in every if r.get("kernel", "warp_correlate") == kernel
@@ -1435,8 +1800,11 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
             by[r["bound_by"]] += r["bound_ms"]
         library = [r["library_ms"] for r in rows if "library_ms" in r]
         orbit = rows_of(name, "synthetic", "orbit")
-        held = [r for inputs in RECIPE_INPUTS for r in rows_of(name, inputs)]
+        held = [r for inputs in (*RECIPE_INPUTS, "model vp") for r in rows_of(name, inputs)]
         extra["recipe_launches"] = {path: n[name] for path, n in recipes.items()}
+        extra["parallel_launches"] = {path: n[name] for path, n in parallel.items()}
+        vp = rows_of(name, "model vp")
+        extra["vp_model_ms"] = sum(r["kernel_ms"] for r in vp) if vp else None
         extra["recipe_model_ms"] = {inputs: sum(r["kernel_ms"] for r in rows_of(name, inputs))
                                     for inputs in RECIPE_INPUTS if rows_of(name, inputs)}
         return {"name": name, "route": "cuda", "source": f"dmvsnet_tpu_torch/csrc/{name}.cu",
@@ -1455,6 +1823,7 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
     # ms, plain_ms, library_ms and bound_ms are sums over the six passes of
     # one forward (eval shapes; for the resample kernel its four launches per
     # pass) or one backward (train shapes) on the smoke's synthetic inputs;
+    # vp_model_ms kernel 1 on rank 0's six passes of the vp forward (phase 18);
     # model_ms the same on the inputs of one dtu_test batch (kernel 1), one
     # dtu_train step (kernels 2 and 3) or one dtu_test batch of the epipolar
     # model with all six passes routed (kernels 4 and 5); recipe_model_ms
@@ -1491,9 +1860,17 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--grad-trials", type=int, default=0,
                         help="fresh sets of weights to repeat the gradient comparison on")
-    grad_trials = parser.parse_args().grad_trials
+    parser.add_argument("--rank-task", choices=["cli", "gloo"],
+                        help="run as a rank of phase 16 or 17-18 (the script starts these "
+                             "itself under torchrun)")
+    parser.add_argument("--task-dir", help="where a rank reads its task and writes its results")
+    args = parser.parse_args()
+    grad_trials = args.grad_trials
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; nothing run")
+    if args.rank_task:
+        rank_worker(args.rank_task, args.task_dir)
+        return
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -1537,9 +1914,7 @@ def main() -> None:
             synthetic.write_eval_scene(os.path.join(tmp, "data"), "scan1", height=H, width=W,
                                        n_views=V, seed=0)
             print(f"scene: {time.perf_counter() - t0:.2f}s", flush=True)
-            argv = ["--test", "--preset", "dtu_test", "--datapath", os.path.join(tmp, "data"),
-                    "--testlist", "scan1", "--outdir", os.path.join(tmp, "out"),
-                    "--filter_method", "none", "--eval_batch", str(B)]
+            argv = eval_argv(tmp)
             cuda_build.reset_launches()
             t0 = time.perf_counter()
             summary = cli.main(argv)
@@ -1605,13 +1980,32 @@ def main() -> None:
         model += model_rows(captured, "model blendedmvs")
         del captured
 
+        # data parallelism: torchrun with nccl at world size 1, then two
+        # ranks sharing the one card over gloo; kernel 1 on rank 0's vp passes.
+        # The ranks share the card with this process: free what the earlier
+        # phases left in reference cycles first
+        gc.collect()
+        torch.cuda.empty_cache()
+        nccl = timed("dp_nccl", dp_nccl, tmp, train_argv(tmp, "logs_nccl"), train["checkpoint"])
+        print("dp_nccl " + json.dumps(nccl), flush=True)
+        dp, vp, vp_passes = timed("dp_vp_gloo", gloo_ranks, dev, tmp, train_argv(tmp, "logs_gloo"),
+                                  eval_argv(tmp), train["checkpoint"],
+                                  train["grad_rel_l2_diff_yardstick"], train["train_step_ms"])
+        print("dp_gloo " + json.dumps(dp), flush=True)
+        print("vp " + json.dumps(vp), flush=True)
+        model += model_rows(vp_passes, "model vp")
+        del vp_passes
+
     print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
           flush=True)
     report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
            epi_launches, fallback["launches"],
            dict(gate_overfit=gate["train_launches"], gate_test=gate["test_launches"],
                 recipe_dtu=dtu["launches"], recipe_tank=tank["launches"],
-                blendedmvs=bmvs["launches"]))
+                blendedmvs=bmvs["launches"]),
+           dict(dp_nccl_run=nccl["launches"], dp_gloo_step_rank0=dp["launches_per_rank"][0],
+                vp_forward_rank0=vp["forward"]["launches_per_rank"][0],
+                vp_step_rank0=vp["step"]["launches_per_rank"][0]))
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,14 @@ inference with point-cloud fusion, and depth-map visualisation.
   dmvsnet-torch --test --preset tank_test --datapath ... --resume ...
   dmvsnet-torch --preset blendedmvs_finetune --datapath ... --resume model_000015.ckpt
   dmvsnet-torch --vis --depth_path out.pfm [--depth_img_save_dir DIR]
+  torchrun --nproc_per_node N -m dmvsnet_tpu_torch.cli --preset dtu_train ...
 
 Runs on CUDA unless ``--device cpu`` (``--vis`` needs no device).  The
-flags are those of the JAX package's CLI without its mesh and platform
-flags.
+flags are those of the JAX package's CLI without its platform flag.  Under
+``torchrun`` (or the JAX package's COORDINATOR_ADDRESS / NUM_PROCESSES /
+PROCESS_ID) training and ``--val`` run data-parallel over every rank (nccl
+on CUDA, gloo on the CPU; ``--mesh_data`` as in the JAX package);
+``--test`` runs in one process, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -100,6 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
     # visualization
     p.add_argument("--depth_path", default=None)
     p.add_argument("--depth_img_save_dir", default=".")
+
+    # mesh
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="ranks on the data axis (default: all); reduced to divide batch_size")
+    p.add_argument("--mesh_spatial", type=int, default=None,
+                   help="ranks on the spatial axis: only 1 is ported")
     return p
 
 
@@ -128,10 +138,15 @@ def main(argv=None) -> dict:
     cfg = config_from_args(args)
     if args.test:
         from dmvsnet_tpu_torch.engine.evaluate import run_test
+        from dmvsnet_tpu_torch.parallel.mesh import rank_and_world
 
+        rank_and_world()  # raises under WORLD_SIZE > 1: run_test is one process
         return run_test(cfg, device=args.device)
 
     from dmvsnet_tpu_torch.engine.train import Trainer
+    from dmvsnet_tpu_torch.parallel import init_multihost
+
+    init_multihost(args.device)
 
     trainer = Trainer(cfg, device=args.device)
     summary = {"mode": "val" if args.val else "train", "device": str(trainer.device)}
@@ -143,5 +158,17 @@ def main(argv=None) -> dict:
     return summary
 
 
-if __name__ == "__main__":
+def console_main() -> None:
+    """The ``dmvsnet-torch`` console script and ``python -m``: ``main``
+    without its return value, which the console script would pass to
+    ``sys.exit`` (a dict there prints itself and exits 1); then the process
+    group, if the run made one, is taken down."""
+    import torch.distributed as dist
+
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    console_main()

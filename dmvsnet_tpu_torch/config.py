@@ -82,7 +82,9 @@ class Config:
     dist_base: float = 0.25
     rel_diff_base: float = 1.0 / 1300
 
-    # parallelism
+    # parallelism (training and --val): ranks on the data axis (0 = all of
+    # them), reduced to divide batch_size; the spatial axis is not ported
+    # and raises above 1
     mesh_data: int = 0
     mesh_spatial: int = 1
 

@@ -8,6 +8,10 @@ read it.  Two restore modes:
 
 * full resume (training): weights + optimizer + scheduler + epoch;
 * weights-only (val / test / finetune): weights only.
+
+With a process group, rank 0 writes and every rank waits for it at a
+barrier; every rank restores.  Callers pass the bare model, never its DDP
+wrapper, whose state dict would prefix every key with "module.".
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import os
 
 import torch
+import torch.distributed as dist
 
 from dmvsnet_tpu_torch.convert import load_reference_state_dict
 
@@ -25,19 +30,23 @@ def _path(log_dir: str, epoch: int) -> str:
 
 def save_checkpoint(log_dir: str, epoch: int, model, optimizer, scheduler) -> str:
     """Full-state save, one file per epoch; written to a temporary name and
-    renamed, so a reader never sees half a file."""
+    renamed, so a reader never sees half a file.  With a process group only
+    rank 0 writes, and every rank returns once the file is there."""
     path = _path(log_dir, epoch)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    payload = {
-        "epoch": epoch,
-        "step": scheduler.last_epoch,
-        "model": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
-        "lr_scheduler": scheduler.state_dict(),
-    }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        payload = {
+            "epoch": epoch,
+            "step": scheduler.last_epoch,
+            "model": model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+            "lr_scheduler": scheduler.state_dict(),
+        }
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    if dist.is_initialized():
+        dist.barrier()
     return path
 
 

@@ -1,6 +1,11 @@
 """Step factories (port of dmvsnet_tpu.engine.steps): train, eval and
 depth-map inference.  PyTorch runs eagerly, so a step is a plain function:
 forward (2 passes x 3 stages), loss, backward, Adam update, metrics.
+
+On a ``mesh`` (``parallel.make_mesh``) the loss and the metrics are those
+of the global batch and the returned scalars are reduced over the dp group
+before they are returned, so they are the same on every rank; the model of
+a train step is then wrapped in DDP, which averages the gradients.
 """
 
 from __future__ import annotations
@@ -11,18 +16,23 @@ import torch
 
 from dmvsnet_tpu_torch.losses import metrics as metrics_lib
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
+from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA
 
 
-def _scalars(outputs, batch, loss, dlossw) -> dict[str, torch.Tensor]:
+def _scalars(outputs, batch, loss, dlossw, mesh) -> dict[str, torch.Tensor]:
     final = f"stage{len(dlossw)}"
     gt = batch["depth"][final]
     mask = batch["mask"][final] > 0.5
+    # each rank's loss is n_dp times its share of the global loss
+    # (losses/mvs_loss.py), so the dp mean is the global loss
+    loss = loss.detach() if mesh is None else mesh.mean(loss, AXIS_DATA)
     with torch.no_grad():
-        return {"loss": loss.detach(),
-                **metrics_lib.standard_metrics(outputs["depth"], gt, mask)}
+        return {"loss": loss,
+                **metrics_lib.standard_metrics(outputs["depth"], gt, mask, mesh)}
 
 
-def make_train_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression") -> Callable:
+def make_train_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression",
+                    mesh=None) -> Callable:
     """train_step(model, optimizer, scheduler, batch) -> (scalars, (depth,
     photometric_confidence)).
 
@@ -36,9 +46,9 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression") -> C
         model.train()
         optimizer.zero_grad(set_to_none=True)
         outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-        loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw)
+        loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
         loss.backward()
-        scalars = _scalars(outputs, batch, loss, dlossw)
+        scalars = _scalars(outputs, batch, loss, dlossw, mesh)
         scalars["lr"] = scheduler.get_last_lr()[0]
         optimizer.step()
         scheduler.step()
@@ -47,7 +57,8 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression") -> C
     return train_step
 
 
-def make_eval_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression") -> Callable:
+def make_eval_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression",
+                   mesh=None) -> Callable:
     """eval_step(model, batch) -> (scalars, depth, photometric_confidence),
     in eval mode under ``torch.no_grad()``."""
 
@@ -55,8 +66,8 @@ def make_eval_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression") -> Ca
         model.eval()
         with torch.no_grad():
             outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-            loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw)
-        scalars = _scalars(outputs, batch, loss, dlossw)
+            loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
+        scalars = _scalars(outputs, batch, loss, dlossw, mesh)
         return scalars, outputs["depth"], outputs["photometric_confidence"]
 
     return eval_step

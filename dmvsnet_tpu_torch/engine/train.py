@@ -1,18 +1,28 @@
-"""Training orchestration (port of dmvsnet_tpu.engine.train), on one device.
+"""Training orchestration (port of dmvsnet_tpu.engine.train).
 
 Per epoch: reshuffle (set_epoch), iterate batches, one train step per
 batch, tensorboard scalars/images where tensorboardX is installed, one
 checkpoint per epoch, validation every eval_freq epochs.  Runs on CUDA
-unless the caller asks for the CPU.  Data parallelism is later work.
+unless the caller asks for the CPU.
+
+The Trainer trains on a dp mesh over every rank of the process group
+(``parallel.init_multihost``; one rank without one), as the JAX Trainer
+trains on its (dp, sp) device mesh: ``cfg.batch_size`` is the global
+batch, each rank loads its 1/world share, batch norm and the loss reduce
+over the global batch, DDP averages the gradients, and the logged scalars
+are global.  Only rank 0 prints progress, writes tensorboard and writes
+the checkpoint.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Any
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.config import Config
@@ -24,6 +34,7 @@ from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_eval_step, make_train_step
 from dmvsnet_tpu_torch.models import MVSNet
 from dmvsnet_tpu_torch.models.blocks import init_weights
+from dmvsnet_tpu_torch.parallel.mesh import make_mesh, rank_and_world, replicate_tree, shard_batch
 
 
 class AverageMeter:
@@ -48,10 +59,11 @@ class AverageMeter:
         return {k: float(v) / max(self.count, 1) for k, v in self.sums.items()}
 
 
-def build_model(cfg: Config, device: torch.device) -> MVSNet:
+def build_model(cfg: Config, device: torch.device, mesh=None) -> MVSNet:
     """The MVSNet of ``cfg`` on ``device`` with a seeded random init from
     ``cfg.seed`` (the same seed gives the same weights on every device), in
-    train mode.  Raises for what the port does not run yet."""
+    train mode, on ``mesh`` (a ``parallel.Mesh``) if given.  Raises for what
+    the port does not run yet."""
     if cfg.fea_mode != "fpn":
         raise NotImplementedError(f"fea_mode={cfg.fea_mode!r}: only 'fpn' is implemented")
     if cfg.agg_mode != "variance":
@@ -82,10 +94,23 @@ def build_model(cfg: Config, device: torch.device) -> MVSNet:
     with torch.device("meta"):
         model = MVSNet(ndepths=tuple(cfg.ndepths),
                        depth_interval_ratio=tuple(cfg.interval_ratio),
-                       inverse_depth=cfg.inverse_depth, warp_impl=impl)
+                       inverse_depth=cfg.inverse_depth, warp_impl=impl, mesh=mesh)
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device).train()
+
+
+def data_parallel(model: MVSNet):
+    """The module a train step runs: ``model`` itself without a process
+    group; under one, DDP over every rank, after rank 0's parameters and
+    buffers reached them all.  Each rank keeps its own buffers
+    (``broadcast_buffers=False``): the synced batch norm keeps their running
+    statistics equal, and a fault there shows instead of being overwritten
+    from rank 0.  Checkpoints are written from ``model``, not the wrapper."""
+    if not torch.distributed.is_initialized():
+        return model
+    replicate_tree(model)
+    return DistributedDataParallel(model, broadcast_buffers=False, init_sync=False)
 
 
 class Trainer:
@@ -95,7 +120,18 @@ class Trainer:
         # cuDNN defaults fp32 convolutions to TF32; the port is held to the
         # fp32 reference
         pin_fp32()
-        self.model = build_model(cfg, self.device)
+        self.rank, world = rank_and_world()
+        n_data = cfg.mesh_data or max(1, world // cfg.mesh_spatial)
+        # the global batch must divide over the dp axis; shrink dp to the
+        # largest compatible size rather than failing at the first step
+        if cfg.batch_size % n_data:
+            n_data = math.gcd(cfg.batch_size, n_data)
+            print(f"note: dp mesh axis reduced to {n_data} "
+                  f"(batch_size {cfg.batch_size} must divide over it)", flush=True)
+        self.mesh = make_mesh(n_data, n_spatial=cfg.mesh_spatial, device=self.device)
+        if cfg.batch_size % world:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide over {world} ranks")
+        self.model = build_model(cfg, self.device, self.mesh)
 
         train_scans = resolve_scan_list(cfg.trainlist, cfg.datapath)
         val_scans = resolve_scan_list(cfg.testlist, cfg.datapath)
@@ -110,8 +146,12 @@ class Trainer:
             self.train_ds.metas = self.train_ds.metas[: cfg.max_train_samples]
         if cfg.max_val_samples:
             self.val_ds.metas = self.val_ds.metas[: cfg.max_val_samples]
-        self.train_loader = make_loader(self.train_ds, cfg.batch_size, "train", seed=cfg.seed)
-        self.val_loader = make_loader(self.val_ds, cfg.batch_size, "val", seed=cfg.seed)
+        # cfg.batch_size is the global batch; each rank loads its share
+        shard = dict(num_hosts=world, host_id=self.rank)
+        self.train_loader = make_loader(
+            self.train_ds, cfg.batch_size // world, "train", seed=cfg.seed, **shard)
+        self.val_loader = make_loader(
+            self.val_ds, cfg.batch_size // world, "val", seed=cfg.seed, **shard)
 
         steps_per_epoch = max(1, len(self.train_loader))
         self.lr_schedule = make_lr_schedule(
@@ -127,18 +167,20 @@ class Trainer:
                 weights_only=weights_only)
             if not weights_only:
                 self.start_epoch = resumed_epoch
+        self.net = data_parallel(self.model)
 
-        self.train_step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
-        self.eval_step = make_eval_step(tuple(cfg.dlossw), cfg.depth_mode)
+        self.train_step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode, self.mesh)
+        self.eval_step = make_eval_step(tuple(cfg.dlossw), cfg.depth_mode, self.mesh)
 
         self.writer = None
-        try:
-            from tensorboardX import SummaryWriter
-        except ImportError:
-            pass
-        else:
-            os.makedirs(cfg.log_dir, exist_ok=True)
-            self.writer = SummaryWriter(log_dir=cfg.log_dir)
+        if self.rank == 0:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                pass
+            else:
+                os.makedirs(cfg.log_dir, exist_ok=True)
+                self.writer = SummaryWriter(log_dir=cfg.log_dir)
 
     @property
     def step(self) -> int:
@@ -170,7 +212,7 @@ class Trainer:
             for i, host_batch in enumerate(self.train_loader):
                 batch = self.to_device(host_batch)
                 scalars, (depth, conf) = self.train_step(
-                    self.model, self.optimizer, self.scheduler, batch)
+                    self.net, self.optimizer, self.scheduler, batch)
                 meter.update(scalars)  # device-side accumulation, no sync
                 gstep = epoch * len(self.train_loader) + i
                 if gstep % cfg.summary_freq == 0:
@@ -178,13 +220,11 @@ class Trainer:
                     scalars = {k: float(v) for k, v in scalars.items()}
                     self._log("train", scalars, gstep)
                     self._log_images("train", host_batch, depth, conf, gstep)
-                    print(
+                    self._print(
                         f"epoch {epoch} [{i}/{len(self.train_loader)}] "
                         f"loss {scalars['loss']:.3f} "
                         f"th2 {scalars['thres2mm_error']:.3f} "
-                        f"({(time.time() - t0) / (i + 1):.2f}s/it)",
-                        flush=True,
-                    )
+                        f"({(time.time() - t0) / (i + 1):.2f}s/it)")
             train_avg = meter.avg
             self._log("train_avg", train_avg, epoch)
             path = ckpt_lib.save_checkpoint(
@@ -211,14 +251,14 @@ class Trainer:
                 self._log_images("test", host_batch, depth, conf, gstep)
         avg = meter.avg
         self._log("test_avg", avg, epoch)
-        print(f"validate epoch {epoch}: {avg}", flush=True)
+        self._print(f"validate epoch {epoch}: {avg}")
         return avg
 
-    def to_device(self, batch: dict) -> dict:
-        """A loader batch (numpy) as tensors on the trainer's device."""
-        def move(v):
-            if isinstance(v, dict):
-                return {k: move(x) for k, x in v.items()}
-            return torch.from_numpy(v).to(self.device)
+    def _print(self, text: str) -> None:
+        if self.rank == 0:
+            print(text, flush=True)
 
-        return {k: move(v) for k, v in batch.items() if k != "filename"}
+    def to_device(self, batch: dict) -> dict:
+        """A loader batch (numpy; this rank's share) as tensors on the
+        trainer's device."""
+        return shard_batch({k: v for k, v in batch.items() if k != "filename"}, self.mesh)

@@ -6,7 +6,8 @@ the JAX package, including its quirk of feeding the *softmaxed*
 prob_volume into a with-logits BCE.
 
 Layouts: prob_volume (B, D, H, W, C=4) (the per-channel loss is averaged),
-depth_values (B, D, H, W).
+depth_values (B, D, H, W).  With a ``mesh`` the masked means are those of
+the global batch, as in ``mvs_loss``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from dmvsnet_tpu_torch.losses.mvs_loss import masked_ratio
 
 
 def _bce_with_logits(logits, targets, pos_weight=None):
@@ -40,7 +43,8 @@ def _expand_mask(mask, prob_volume):
     return mask[:, None].expand_as(prob_volume)
 
 
-def classification_loss(prob_volume, depth_values, interval, depth_gt, mask, weight):
+def classification_loss(prob_volume, depth_values, interval, depth_gt, mask, weight,
+                        mesh=None):
     """BCE with pos_weight=(D-1) over the hypothesis axis."""
     d = depth_values.shape[1]
     gt_vol = _gt_index_volume(depth_values, depth_gt, interval, centered=True)
@@ -48,12 +52,11 @@ def classification_loss(prob_volume, depth_values, interval, depth_gt, mask, wei
         gt_vol = gt_vol[..., None]
     ce = _bce_with_logits(prob_volume, gt_vol, pos_weight=float(d - 1)) * weight
     mask_e = _expand_mask(mask, ce)
-    total = (ce * mask_e).sum()
-    count = mask_e.sum()
-    return torch.where(count > 0, total / count.clamp(min=1), torch.zeros_like(total))
+    return masked_ratio((ce * mask_e).sum(), mask_e.sum(), mesh)
 
 
-def gfocal_loss(prob_volume, depth_values, interval, depth_gt, mask, weight, gamma, alpha):
+def gfocal_loss(prob_volume, depth_values, interval, depth_gt, mask, weight, gamma, alpha,
+                mesh=None):
     """Generalized focal loss."""
     gt_vol = _gt_index_volume(depth_values, depth_gt, interval, centered=False)
     if prob_volume.dim() == 5:
@@ -64,12 +67,11 @@ def gfocal_loss(prob_volume, depth_values, interval, depth_gt, mask, weight, gam
     focal = pos_w + neg_w
     p = prob_volume.clamp(1e-4, 1.0 - 1e-7)
     bce = -(gt_vol * torch.log(p) + (1 - gt_vol) * torch.log1p(-p))
-    loss = (bce * focal * mask_e).sum() / mask_e.sum().clamp(min=1)
-    return loss * weight
+    return masked_ratio((bce * focal * mask_e).sum(), mask_e.sum(), mesh) * weight
 
 
 def unified_focal_loss(prob_volume, depth_values, interval, depth_gt, mask, weight,
-                       gamma, alpha):
+                       gamma, alpha, mesh=None):
     """Unity-target focal loss."""
     gt_vol = _gt_index_volume(depth_values, depth_gt, interval, centered=False)
     unity = torch.where(gt_vol > 0, 1.0 - (depth_gt[:, None] - depth_values) / interval,
@@ -88,8 +90,7 @@ def unified_focal_loss(prob_volume, depth_values, interval, depth_gt, mask, weig
     focal = pos_w ** gamma * (unity > 0) + alpha * neg_w ** gamma * (unity <= 0)
     p = prob_volume.clamp(1e-7, 1.0 - 1e-7)
     bce = -(unity * torch.log(p) + (1 - unity) * torch.log1p(-p))
-    loss = (bce * focal * mask_e).sum() / mask_e.sum().clamp(min=1)
-    return loss * weight
+    return masked_ratio((bce * focal * mask_e).sum(), mask_e.sum(), mesh) * weight
 
 
 def entropy_loss(prob_volume, depth_gt, mask, depth_values):
@@ -106,7 +107,7 @@ _FL_GAMMAS = (2.0, 1.0, 0.0)
 _FL_ALPHAS = (0.75, 0.5, 0.25)
 
 
-def alt_mvs_loss(outputs, depth_gt_ms, mask_ms, mode, dlossw):
+def alt_mvs_loss(outputs, depth_gt_ms, mask_ms, mode, dlossw, mesh=None):
     """Stage loop for the alternate modes."""
     total = 0.0
     for key in [k for k in outputs if k.startswith("stage")]:
@@ -117,11 +118,11 @@ def alt_mvs_loss(outputs, depth_gt_ms, mask_ms, mode, dlossw):
         mask = (mask_ms[key] > 0.5).float()
         args = (stage["prob_volume"], stage["depth_values"], stage["interval"], gt, mask, sw)
         if mode == "classification":
-            total = total + classification_loss(*args)
+            total = total + classification_loss(*args, mesh)
         elif mode == "gfocal":
-            total = total + gfocal_loss(*args, _FL_GAMMAS[idx], _FL_ALPHAS[idx])
+            total = total + gfocal_loss(*args, _FL_GAMMAS[idx], _FL_ALPHAS[idx], mesh)
         elif mode == "unification":
-            total = total + unified_focal_loss(*args, _FL_GAMMAS[idx], _FL_ALPHAS[idx])
+            total = total + unified_focal_loss(*args, _FL_GAMMAS[idx], _FL_ALPHAS[idx], mesh)
         else:
             raise NotImplementedError(
                 f"mode must be regression/classification/gfocal/unification, got {mode}")

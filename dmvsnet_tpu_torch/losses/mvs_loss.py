@@ -12,6 +12,13 @@ Per stage and per pass (forward + refine), four term groups:
 As in the JAX package, empty-mask reductions return 0, not NaN.  All
 losses are computed in float32.  Layouts: depth maps (B, H, W), depth4
 (B, H, W, 4).
+
+Under data parallelism (a ``mesh`` with a dp axis) every masked mean is one
+of the global batch, as in the JAX package under jit over a dp-sharded
+batch: the local masked sum over the mask count summed over the dp group.
+The per-rank value is scaled by the dp size, so that DDP's mean of the
+ranks' gradients is the gradient of the global loss and the dp mean of the
+per-rank values is the global loss.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from dmvsnet_tpu_torch.core.sampling import checkerboard
+from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA
 
 
 def smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -27,15 +35,24 @@ def smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
-def masked_weighted_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    count = mask.sum()
-    total = (values * mask).sum()
+def masked_ratio(total: torch.Tensor, count: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``total / count``, 0 where ``count`` is 0.  With a ``mesh`` whose dp
+    axis has n > 1 ranks: ``count`` is summed over the dp group (no gradient)
+    and the ratio is multiplied by n (module docstring)."""
+    n = 1 if mesh is None else mesh.size(AXIS_DATA)
+    if n > 1:
+        count = mesh.all_reduce(count, AXIS_DATA)
+        total = total * n
     return torch.where(count > 0, total / count.clamp(min=1), torch.zeros_like(total))
 
 
-def regression_loss(depth_est, depth_gt, mask, weight) -> torch.Tensor:
+def masked_weighted_mean(values: torch.Tensor, mask: torch.Tensor, mesh=None) -> torch.Tensor:
+    return masked_ratio((values * mask).sum(), mask.sum(), mesh)
+
+
+def regression_loss(depth_est, depth_gt, mask, weight, mesh=None) -> torch.Tensor:
     """(smooth_l1(est, gt) * weight) averaged over masked elements."""
-    return masked_weighted_mean(smooth_l1(depth_est, depth_gt) * weight, mask)
+    return masked_weighted_mean(smooth_l1(depth_est, depth_gt) * weight, mask, mesh)
 
 
 def half_pixel_pool(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +86,7 @@ def monte_carlo_loss(
     weight: torch.Tensor, mode: str = "center", reflect: bool = False,
     generator: torch.Generator | None = None,
     offsets: tuple[torch.Tensor, torch.Tensor] | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Sub-pixel composite loss.
 
@@ -103,12 +121,12 @@ def monte_carlo_loss(
         up = half_pixel_pool((err > 0).float()) == 1.0
         dn = half_pixel_pool((err < 0).float()) == 1.0
         rw = torch.where(up | dn, 2.0, 1.0)
-        return masked_weighted_mean(smooth_l1(rw * s_est, rw * s_gt), s_mask)
+        return masked_weighted_mean(smooth_l1(rw * s_est, rw * s_gt), s_mask, mesh)
     s_w = pool(weight)
-    return regression_loss(s_est, s_gt, s_mask, s_w)
+    return regression_loss(s_est, s_gt, s_mask, s_w, mesh)
 
 
-def _pass_loss(depth4, depth_gt, mask, stage_weight) -> torch.Tensor:
+def _pass_loss(depth4, depth_gt, mask, stage_weight, mesh=None) -> torch.Tensor:
     """The 8-term block shared by forward and refine passes.
 
     depth4: (B, H, W, 4) = [small0, small1, huge0, huge1];
@@ -120,14 +138,14 @@ def _pass_loss(depth4, depth_gt, mask, stage_weight) -> torch.Tensor:
 
     small, huge = depth4[..., :2], depth4[..., 2:]
     loss_depth = 2.0 * regression_loss(
-        small, gt4.expand_as(small), mask4.expand_as(small), stage_weight,
+        small, gt4.expand_as(small), mask4.expand_as(small), stage_weight, mesh,
     ) + 2.0 * regression_loss(
-        huge, gt4.expand_as(huge), mask4.expand_as(huge), stage_weight,
+        huge, gt4.expand_as(huge), mask4.expand_as(huge), stage_weight, mesh,
     )
 
     def var_loss(a, b):
         var_gt = torch.maximum((a - depth_gt).abs(), (b - depth_gt).abs())
-        return regression_loss((a - b).abs(), var_gt, mask, w_map)
+        return regression_loss((a - b).abs(), var_gt, mask, w_map, mesh)
 
     loss_var = var_loss(depth4[..., 0], depth4[..., 1]) + var_loss(
         depth4[..., 2], depth4[..., 3])
@@ -136,17 +154,17 @@ def _pass_loss(depth4, depth_gt, mask, stage_weight) -> torch.Tensor:
     s_min, s_max = small.amin(-1), small.amax(-1)
     h_min, h_max = huge.amin(-1), huge.amax(-1)
     loss_mc = (
-        monte_carlo_loss(torch.where(cb, s_min, s_max), depth_gt, mask, w_map)
-        + monte_carlo_loss(torch.where(~cb, s_min, s_max), depth_gt, mask, w_map)
-        + monte_carlo_loss(torch.where(cb, h_min, h_max), depth_gt, mask, w_map)
-        + monte_carlo_loss(torch.where(~cb, h_min, h_max), depth_gt, mask, w_map)
+        monte_carlo_loss(torch.where(cb, s_min, s_max), depth_gt, mask, w_map, mesh=mesh)
+        + monte_carlo_loss(torch.where(~cb, s_min, s_max), depth_gt, mask, w_map, mesh=mesh)
+        + monte_carlo_loss(torch.where(cb, h_min, h_max), depth_gt, mask, w_map, mesh=mesh)
+        + monte_carlo_loss(torch.where(~cb, h_min, h_max), depth_gt, mask, w_map, mesh=mesh)
     )
     return loss_depth + loss_var + loss_mc
 
 
 def mvs_loss(
     outputs: dict, depth_gt_ms: dict, mask_ms: dict, mode: str = "regression",
-    dlossw: tuple = (0.5, 1.0, 2.0),
+    dlossw: tuple = (0.5, 1.0, 2.0), mesh=None,
 ) -> torch.Tensor:
     """Total loss over stages.
 
@@ -155,11 +173,13 @@ def mvs_loss(
       depth_gt_ms / mask_ms: {"stage{i}": (B, H_i, W_i)} pyramids.
       mode: "regression" (dual-depth path) | "classification" | "gfocal"
         | "unification" (alternates live in ``losses.alt_losses``).
+      mesh: a ``parallel.Mesh``: the loss of the global batch (module
+        docstring); None, this process's batch.
     """
     if mode != "regression":
         from dmvsnet_tpu_torch.losses import alt_losses
 
-        return alt_losses.alt_mvs_loss(outputs, depth_gt_ms, mask_ms, mode, dlossw)
+        return alt_losses.alt_mvs_loss(outputs, depth_gt_ms, mask_ms, mode, dlossw, mesh)
 
     total = 0.0
     for key in [k for k in outputs if k.startswith("stage")]:
@@ -167,6 +187,6 @@ def mvs_loss(
         sw = float(dlossw[int(key.replace("stage", "")) - 1])
         gt = depth_gt_ms[key].float()
         mask = (mask_ms[key] > 0.5).float()
-        total = total + _pass_loss(stage["depth_sub_plus"], gt, mask, sw)
-        total = total + _pass_loss(stage["depth_sub_plus_refine"], gt, mask, sw)
+        total = total + _pass_loss(stage["depth_sub_plus"], gt, mask, sw, mesh)
+        total = total + _pass_loss(stage["depth_sub_plus_refine"], gt, mask, sw, mesh)
     return total

@@ -8,7 +8,11 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
   same update written the other way round); in train mode the running
   variance is updated with the BIASED batch variance, as flax does
   (``torch.nn.BatchNorm*`` would use the unbiased one);
-* a conv has a bias only when it has no batch norm.
+* a conv has a bias only when it has no batch norm;
+* under data parallelism (``sync_batch_norm``) train-mode batch norm takes
+  its statistics over the global batch, as flax does under jit over a
+  dp-sharded batch: the mean and the biased variance of the dp group's
+  joined batch, and the running variance takes the same biased update.
 
 Attribute names follow the reference layout (``.conv`` and ``.bn``), so a
 reference-named state dict loads as is.
@@ -19,8 +23,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from dmvsnet_tpu_torch.parallel.mesh import psum
 
 _CONV = {2: nn.Conv2d, 3: nn.Conv3d}
 _DECONV = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
@@ -37,12 +44,19 @@ class _BiasedRunningVar:
     The fused call updates a copy of the running variance (autograd keeps
     that copy for the backward, so the module's buffer can change in
     place), and the buffer takes the corrected update, per channel.
+
+    With a ``process_group`` (set by ``sync_batch_norm``) the train-mode
+    statistics are those of the batches of every rank in the group.
     """
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
+        if self.process_group is not None:
+            return self._synced_forward(x)
         m = self.momentum
         var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
@@ -52,6 +66,38 @@ class _BiasedRunningVar:
         # (n-1)/n var + (1-m)/n old = (1-m) old + m b
         with torch.no_grad():
             self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
+            self.num_batches_tracked += 1
+        return y
+
+    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train-mode batch norm over the group's joined batch.  Each rank
+        puts its per-channel count, mean and sum of squared deviations into
+        its row of a (ranks, 3, C) table; one all_reduce gives every rank
+        the whole table, from which it combines the global mean and biased
+        variance (Chan et al.'s pairwise update).  Combining deviations
+        avoids the cancellation of E[x^2] - E[x]^2 (flax's fast variance)
+        where the mean is large against the spread.  The all_reduce is
+        ``psum``: its backward sums the table's cotangents over the group,
+        so the gradient of the global statistics reaches every rank's input."""
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        mean_r = x.mean(dims)
+        row = torch.stack([torch.full_like(mean_r, x.numel() // c), mean_r,
+                           (x - mean_r.view(shape)).square().sum(dims)])
+        k, size = dist.get_rank(self.process_group), dist.get_world_size(self.process_group)
+        table = psum(torch.cat([row.new_zeros((k, 3, c)), row[None],
+                                row.new_zeros((size - k - 1, 3, c))]), self.process_group)
+        counts, means, m2 = table[:, 0].detach(), table[:, 1], table[:, 2]
+        count = counts.sum(0)
+        mean = (counts * means).sum(0) / count
+        var = (m2.sum(0) + (counts * (means - mean).square()).sum(0)) / count
+        y = (x - mean.view(shape)) * (torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        y = y + self.bias.view(shape)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked += 1
         return y
 
@@ -65,6 +111,16 @@ class BatchNorm3d(_BiasedRunningVar, nn.BatchNorm3d):
 
 
 _BN = {2: BatchNorm2d, 3: BatchNorm3d}
+
+
+def sync_batch_norm(module: nn.Module, process_group) -> nn.Module:
+    """Makes every batch norm of ``module`` take its train-mode statistics
+    over the ranks of ``process_group`` (the dp group); None restores the
+    per-process statistics.  The state dict is unchanged."""
+    for m in module.modules():
+        if isinstance(m, _BiasedRunningVar):
+            m.process_group = process_group
+    return module
 
 
 class ConvBlock(nn.Module):

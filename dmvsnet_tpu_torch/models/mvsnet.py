@@ -19,7 +19,13 @@ package's ``train`` argument does.
   The sweep is an approximation without a gradient, so a module in training
   mode sends every pass to the exact kernel.  Each stage's output carries
   ``sweep_engaged`` and ``sweep_engaged_refine``: (B, V-1) bool tensors on
-  the CPU saying which (batch element, source view) took the sweep.
+  the CPU saying which (batch element, source view) took the sweep;
+* ``mesh`` (a ``parallel.Mesh``): train-mode batch norm takes its statistics
+  over the dp group (``blocks.sync_batch_norm``), and where the vp axis has
+  more than one rank and divides V-1 every cost pass sums the source views
+  over it (``warp_correlate.aggregate_cost_volume_view_sharded``), ahead of
+  the epipolar routing, which vp then never takes, as in the JAX package.
+  Without a mesh, or with vp = 1, the forward is the one-process forward.
 
 Public layouts are the JAX package's: imgs (B, V, H, W, 3) with view 0 the
 reference; proj_matrices {"stage1".."stage3": (B, V, 2, 4, 4)};
@@ -36,9 +42,11 @@ from torch import nn
 
 from dmvsnet_tpu_torch.core import sampling
 from dmvsnet_tpu_torch.models import depth_net
+from dmvsnet_tpu_torch.models.blocks import sync_batch_norm
 from dmvsnet_tpu_torch.models.cost_reg import CostRegNet, CostRegNetRefine
 from dmvsnet_tpu_torch.models.feature_net import FeatureNet
 from dmvsnet_tpu_torch.ops import epipolar_sweep, warp_correlate
+from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_VIEW
 
 # Per-(stage, pass) epipolar routing, consulted only under
 # warp_impl="epipolar": the stage indices whose main / refine cost pass take
@@ -63,6 +71,7 @@ class MVSNet(nn.Module):
         warp_impl: str = "cuda",
         epipolar_main_stages: Sequence[int] | None = None,
         epipolar_refine_stages: Sequence[int] | None = None,
+        mesh=None,
     ):
         super().__init__()
         if warp_impl not in ("cuda", "epipolar", "torch"):
@@ -81,6 +90,9 @@ class MVSNet(nn.Module):
             [CostRegNet(c) for c in cr_base_channels])
         self.cost_regularization_refine = nn.ModuleList(
             [CostRegNetRefine(c) for c in cr_base_channels])
+        self.mesh = mesh
+        if mesh is not None:
+            sync_batch_norm(self, mesh.group(AXIS_DATA))
 
     def forward(
         self,
@@ -116,6 +128,8 @@ class MVSNet(nn.Module):
 
         outputs: dict[str, Any] = {}
         last_depth = None
+        vp = 1 if self.mesh is None else self.mesh.size(AXIS_VIEW)
+        impl = "torch" if self.warp_impl == "torch" else "cuda"
         for s in range(num_stage):
             stage = f"stage{s + 1}"
             scale = 2 ** (num_stage - s - 1)
@@ -134,15 +148,16 @@ class MVSNet(nn.Module):
 
             def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module, sweep_stages):
                 engaged = None
-                if self.warp_impl == "epipolar" and not self.training and s in sweep_stages:
+                if vp > 1 and (v - 1) % vp == 0:
+                    cost = warp_correlate.aggregate_cost_volume_view_sharded(
+                        feats[key], proj2, dv, self.mesh, impl)
+                elif self.warp_impl == "epipolar" and not self.training and s in sweep_stages:
                     cost, engaged = epipolar_sweep.aggregate_cost_volume_epipolar(
                         feats[key], proj2, dv)
                 else:
-                    cost = warp_correlate.aggregate_cost_volume(
-                        feats[key], proj2, dv,
-                        impl="torch" if self.warp_impl == "torch" else "cuda")
-                    if self.warp_impl == "epipolar":
-                        engaged = torch.zeros((b, v - 1), dtype=torch.bool)
+                    cost = warp_correlate.aggregate_cost_volume(feats[key], proj2, dv, impl)
+                if self.warp_impl == "epipolar" and engaged is None:
+                    engaged = torch.zeros((b, v - 1), dtype=torch.bool)
                 out = reg(cost.permute(0, 4, 1, 2, 3).contiguous())  # (B, 4, D, h, w)
                 return out.permute(0, 2, 3, 4, 1), engaged           # (B, D, h, w, 4)
 

@@ -38,6 +38,7 @@ from torch.autograd.function import once_differentiable
 
 from dmvsnet_tpu_torch.core import geometry
 from dmvsnet_tpu_torch.ops import cuda_build, warp
+from dmvsnet_tpu_torch.parallel.mesh import AXIS_VIEW
 
 CHANNELS = (8, 16, 32)
 
@@ -280,3 +281,30 @@ def aggregate_cost_volume(
         dv = dv[:, :, None, None].expand(b, dv.shape[1], h, w)
     return fn(feats.float().contiguous(), geometry.relative_projections(proj2),
               dv.contiguous())
+
+
+def aggregate_cost_volume_view_sharded(
+    feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, mesh,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """``aggregate_cost_volume`` with the V-1 source views sharded over the
+    mesh's vp axis (port of ``dmvsnet_tpu.ops.warp.aggregate_cost_volume_view_sharded``).
+
+    vp rank r runs the cost pass on the reference view and its source views
+    1 + r*k .. (r+1)*k, k = (V-1)/vp (one kernel launch over 1+k views), and
+    one all_reduce over the vp group sums the partial cost volumes.  The
+    view sum is associative, so this is the serial result up to fp
+    reassociation.  The all_reduce's backward sums the cotangents over the
+    group (``parallel.mesh.psum``): each rank's feature gradient is vp times
+    that of its own views, and DDP's mean over the ranks divides it back.
+
+    Args: as ``aggregate_cost_volume``, plus ``mesh``, a ``parallel.Mesh``
+    whose vp size divides V-1 (raises ValueError otherwise).
+    """
+    v1, vp = feats.shape[1] - 1, mesh.size(AXIS_VIEW)
+    if v1 % vp:
+        raise ValueError(f"vp={vp} must divide the {v1} source views")
+    k = v1 // vp
+    mine = [0, *range(1 + mesh.coords[AXIS_VIEW] * k, 1 + (mesh.coords[AXIS_VIEW] + 1) * k)]
+    partial = aggregate_cost_volume(feats[:, mine], proj2[:, mine], depth_values, impl)
+    return mesh.psum(partial, AXIS_VIEW)

@@ -9,6 +9,8 @@
   without CUDA instead of carrying on on the CPU;
 * options the port does not run yet raise and name the ROADMAP item, and a
   filter_method no package implements raises;
+* the dmvsnet-torch console script returns None (exit status 0) after a
+  successful run;
 * the CLI's --test path writes depth maps on --device cpu, its default mode
   is training, and --vis renders a depth map (tests/test_torch_fusion.py
   holds fusion and the render against the JAX package);
@@ -20,6 +22,7 @@
 import ast
 import os
 import subprocess
+import tomllib
 from pathlib import Path
 
 import numpy as np
@@ -61,7 +64,8 @@ def test_port_never_imports_jax_or_the_jax_package():
             "engine/state.py", "engine/steps.py", "engine/checkpoint.py", "engine/train.py",
             "engine/imagery.py", "data/dtu.py", "data/loader.py", "data/blendedmvs.py",
             "fusion/__init__.py", "fusion/ply.py", "fusion/geometry_np.py", "fusion/pcd.py",
-            "fusion/dypcd.py", "fusion/dtu_eval.py", "fusion/tank_config.py"} <= names
+            "fusion/dypcd.py", "fusion/dtu_eval.py", "fusion/tank_config.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py"} <= names
     # and so are the smoke run and the port's scripts
     scripts = sorted((REPO / "scripts").glob("torch_*.py"))
     assert [f.name for f in scripts] == ["torch_dtu_eval.py"]
@@ -147,6 +151,8 @@ def test_unported_options_raise(scene):
         build_train_model(train_cfg.replace(compute_dtype="bfloat16"), cpu)
     with pytest.raises(NotImplementedError, match="adaptive"):
         build_train_model(train_cfg.replace(agg_mode="adaptive"), cpu)
+    with pytest.raises(NotImplementedError, match="sp, the spatial axis"):
+        Trainer(train_cfg.replace(mesh_spatial=2), device="cpu")
     model = build_train_model(train_cfg, cpu)
     assert model.training and model.warp_impl == "torch"
     assert not build_model(_cfg(scene), cpu).training
@@ -201,6 +207,23 @@ def test_cli_test_path_on_cpu(scene):
     with pytest.raises(FileNotFoundError, match="pair.txt"):
         cli.main(["--preset", "dtu_train", "--device", "cpu", "--datapath",
                   str(scene / "data"), "--trainlist", "scan1", "--testlist", "scan1"])
+
+
+def test_console_script_returns_none_after_a_run(tmp_path, monkeypatch, capsys):
+    """The console script passes what its function returns to sys.exit, so
+    that function must return None after a successful run (a dict would
+    print itself and exit 1); main keeps returning the summary."""
+    with open(REPO / "pyproject.toml", "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["dmvsnet-torch"] == "dmvsnet_tpu_torch.cli:console_main"
+    pfm = str(tmp_path / "depth.pfm")
+    io.save_pfm(pfm, np.linspace(400, 900, 64 * 96, dtype=np.float32).reshape(64, 96))
+    argv = ["--vis", "--depth_path", pfm, "--depth_img_save_dir", str(tmp_path / "vis")]
+    monkeypatch.setattr("sys.argv", ["dmvsnet-torch", *argv])
+    assert cli.console_main() is None
+    assert Image.open(tmp_path / "vis" / "depth.png").size == (96, 64)
+    assert "saved" in capsys.readouterr().out
+    assert cli.main(argv)["mode"] == "vis"
 
 
 def test_cli_epipolar_test_path_on_cpu_reports_the_flags(scene):

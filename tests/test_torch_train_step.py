@@ -1,6 +1,12 @@
 """The training slice as a whole: one fp32 train step of the port vs the JAX
 package's ``make_train_step`` with identical weights and batch, at 64x96,
 3 views, batch 2, ndepths 8/8/8, interval ratios 4/2/1, inverse depth.
+The same step also runs data-parallel, each time on 2 gloo ranks (the
+worker of tests/test_torch_parallel.py): dp, one batch element per rank;
+vp, the whole batch on both ranks and one source view each.  Both are held
+against the same JAX step (global batch), with the same tolerances.  The
+two batch elements' masks differ (element 0 has a second hole), so the dp
+ranks' mask counts differ and a mean of per-rank means would show.
 
 The weights start on the port's side (seeded init, random batch-norm
 parameters and statistics, probability heads damped by 0.2 to keep the
@@ -32,6 +38,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_parallel import collect, run_ranks
 
 from dmvsnet_tpu.engine.state import TrainState
 from dmvsnet_tpu.engine.steps import make_train_step as j_make_train_step
@@ -58,7 +65,7 @@ def _record_grads() -> optax.GradientTransformation:
 
 
 @pytest.fixture(scope="module")
-def step_results():
+def step_results(tmp_path_factory):
     gen = torch.Generator().manual_seed(0)
     model = MVSNet(ndepths=NDEPTHS, depth_interval_ratio=RATIOS, inverse_depth=True,
                    warp_impl="cuda")  # CPU tensors: the wrapper runs the plain version
@@ -87,6 +94,18 @@ def step_results():
     batch["imgs"][1] = batch["imgs"][1, :, ::-1].copy()  # two different batch elements
     for s, m in batch["mask"].items():
         m[:, : m.shape[1] // 4, : m.shape[2] // 3] = 0.0  # a hole in the mask
+        m[0, m.shape[1] // 2:, m.shape[2] // 2:] = 0.0    # and a second one in element 0
+
+    def move(v):
+        return {k: move(x) for k, x in v.items()} if isinstance(v, dict) else torch.from_numpy(v)
+
+    # the 2-rank steps run while JAX compiles
+    runs = {}
+    for mode in ("dp", "vp"):
+        d = tmp_path_factory.mktemp(mode)
+        torch.save(dict(mode=mode, sd0=sd0, batch=move(batch), ndepths=NDEPTHS, ratios=RATIOS,
+                        dlossw=DLOSSW), d / "inputs.pt")
+        runs[mode] = run_ranks("step", 2, d)
 
     params, stats = jax_tree_from_state_dict(sd0)
     jm = JMVSNet(ndepths=NDEPTHS, depth_interval_ratio=RATIOS, inverse_depth=True)
@@ -99,9 +118,6 @@ def step_results():
     j_stats = jax.tree_util.tree_map(np.asarray, new_state.batch_stats)
     j_scalars = {k: float(v) for k, v in j_scalars.items()}
 
-    def move(v):
-        return {k: move(x) for k, x in v.items()} if isinstance(v, dict) else torch.from_numpy(v)
-
     tbatch = move(batch)
     # lr 0: the step leaves the parameters where they were and p.grad holds
     # this step's gradients afterwards
@@ -109,30 +125,27 @@ def step_results():
     t_scalars, (t_depth, t_conf) = make_train_step(DLOSSW, "regression")(model, opt, sched, tbatch)
     return dict(model=model, sd0=sd0, tbatch=tbatch, t_scalars=t_scalars, t_depth=t_depth,
                 j_scalars=j_scalars, j_grads=j_grads, j_stats=j_stats,
-                j_depth=np.asarray(j_depth), sched=sched)
+                j_depth=np.asarray(j_depth), sched=sched,
+                ranks={mode: collect(h) for mode, h in runs.items()})
 
 
-def test_loss_and_metrics_match_jax(step_results):
-    r = step_results
-    t, j = {k: float(v) for k, v in r["t_scalars"].items()}, r["j_scalars"]
+def _check_scalars(t: dict, j: dict) -> None:
     print(f"train step: loss {t['loss']:.6f} (port) vs {j['loss']:.6f} (JAX)")
     assert np.isfinite(t["loss"]) and abs(t["loss"] - j["loss"]) <= LOSS_RTOL * abs(j["loss"])
     assert abs(t["abs_depth_error"] - j["abs_depth_error"]) <= 1e-3
     for k in ("thres2mm_error", "thres4mm_error", "thres8mm_error"):
         assert abs(t[k] - j[k]) <= 2.0 / (64 * 96), k
-    assert t["lr"] == 0.0 and r["sched"].last_epoch == 1
-    assert float(np.abs(r["t_depth"].numpy() - r["j_depth"]).max()) <= 0.01
-    assert not r["t_depth"].requires_grad
+    assert t["lr"] == 0.0
 
 
-def test_every_parameter_gradient_matches_jax(step_results):
-    r = step_results
-    want = state_dict_from_jax(r["j_grads"], {})
-    params = dict(r["model"].named_parameters())
-    assert set(want) == set(params)
+def _check_grads(grads: dict, j_grads) -> None:
+    """Every parameter's gradient (numpy, by reference name) against the
+    JAX step's, as relative L2 differences."""
+    want = state_dict_from_jax(j_grads, {})
+    assert set(want) == set(grads)
     rels, sq_diff, sq_norm = {}, 0.0, 0.0
-    for name, p in params.items():
-        g, w = p.grad.numpy().astype(np.float64), want[name].numpy().astype(np.float64)
+    for name, g in grads.items():
+        g, w = g.astype(np.float64), want[name].numpy().astype(np.float64)
         assert np.abs(w).max() > 0, f"{name}: JAX gradient is identically zero"
         rels[name] = float(np.linalg.norm(g - w) / np.linalg.norm(w))
         sq_diff += float(((g - w) ** 2).sum())
@@ -145,20 +158,62 @@ def test_every_parameter_gradient_matches_jax(step_results):
     assert overall <= GRAD_RTOL_ALL
     assert np.median(list(rels.values())) <= GRAD_RTOL_MEDIAN
     assert rels[worst] <= GRAD_RTOL_WORST, worst
+
+
+def _check_stats(got: dict, j_stats, sd0: dict) -> None:
+    want = state_dict_from_jax({}, j_stats)
+    assert len(want) == 2 * sum(1 for k in got if k.endswith("running_mean"))
+    for name, w in want.items():
+        tol = STAT_RTOL * max(1.0, float(w.abs().max()))
+        assert float((got[name] - w).abs().max()) <= tol, name
+        # and they did move away from where they started
+        assert not torch.equal(got[name], sd0[name]), name
+
+
+def test_loss_and_metrics_match_jax(step_results):
+    r = step_results
+    _check_scalars({k: float(v) for k, v in r["t_scalars"].items()}, r["j_scalars"])
+    assert r["sched"].last_epoch == 1
+    assert float(np.abs(r["t_depth"].numpy() - r["j_depth"]).max()) <= 0.01
+    assert not r["t_depth"].requires_grad
+
+
+def test_every_parameter_gradient_matches_jax(step_results):
+    r = step_results
+    params = dict(r["model"].named_parameters())
+    _check_grads({n: p.grad.numpy() for n, p in params.items()}, r["j_grads"])
     # lr 0 left the parameters alone
     assert all(torch.equal(p.detach(), r["sd0"][n]) for n, p in params.items())
 
 
 def test_new_batch_stats_match_jax(step_results):
     r = step_results
-    want = state_dict_from_jax({}, r["j_stats"])
-    got = r["model"].state_dict()
-    assert len(want) == 2 * sum(1 for k in got if k.endswith("running_mean"))
-    for name, w in want.items():
-        tol = STAT_RTOL * max(1.0, float(w.abs().max()))
-        assert float((got[name] - w).abs().max()) <= tol, name
-        # and they did move away from where they started
-        assert not torch.equal(got[name], r["sd0"][name]), name
+    _check_stats(r["model"].state_dict(), r["j_stats"], r["sd0"])
+
+
+@pytest.mark.parametrize("mode", ["dp", "vp"])
+def test_two_rank_loss_and_metrics_match_jax(step_results, mode):
+    r0, r1 = step_results["ranks"][mode]
+    # the global scalars, the same on both ranks
+    assert r0["scalars"] == r1["scalars"]
+    _check_scalars(r0["scalars"], step_results["j_scalars"])
+    if mode == "dp":  # one element each, different mask counts
+        assert r0["mask_count"] != r1["mask_count"]
+    assert r0["backend"] == "gloo" and r0["init"]["process_count"] == 2
+
+
+@pytest.mark.parametrize("mode", ["dp", "vp"])
+def test_two_rank_gradients_match_jax(step_results, mode):
+    r0, r1 = step_results["ranks"][mode]
+    # DDP leaves the same averaged gradient on both ranks
+    assert all(torch.equal(g, r1["grads"][n]) for n, g in r0["grads"].items())
+    _check_grads({n: g.numpy() for n, g in r0["grads"].items()}, step_results["j_grads"])
+
+
+@pytest.mark.parametrize("mode", ["dp", "vp"])
+def test_two_rank_batch_stats_match_jax(step_results, mode):
+    for r in step_results["ranks"][mode]:
+        _check_stats(r["state"], step_results["j_stats"], step_results["sd0"])
 
 
 def test_eval_step_after_train_step_uses_running_stats(step_results):
