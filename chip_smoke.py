@@ -124,11 +124,40 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    confidence 1e-3), 6 kernel-1 launches per rank over 3 views each; then
    one vp train step at dtu_train held as in phase 17; then kernel 1 as in
    phase 3 on rank 0's six vp passes ("inputs": "model vp");
-19. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+19. "bf16_eval": the CLI's --test --preset dtu_test on phase 5's scene and
+   seeded weights twice, at --feature_dtype bfloat16 --costreg_dtype
+   bfloat16 (the JAX package's eval policy on its TPU) and at
+   --compute_dtype bfloat16: 18 kernel-1 launches each, depth and
+   confidence against phase 5's fp32 maps within NUMERICS.json "tol"
+   (mean 0.2 / p99 2 / max 10 mm, confidence mean 0.005), ms per map and
+   peak memory beside the fp32 model's in the same call; then kernel 1 as
+   in phase 3 on the bf16 features, upcast, that one batch's six cost
+   passes received ("inputs": "model bf16 eval");
+20. "bf16_train": one dtu_train step at --compute_dtype bfloat16 from phase
+   6's weights on its validation batch, against the fp32 step under
+   deterministic cuDNN: loss within 1e-2, gradients as relative L2
+   differences beside phase 6's yardstick, the six cost passes' features
+   bf16 with bf16, finite gradients, kernels 1-3 six launches each; ms per
+   step and peak memory;
+21. "remat": the same step with remat=True against remat=False: loss
+   (LOSS_RTOL), gradients (PATH_GRAD_RTOL), running statistics within 1e-6 *
+   max(1, |stat|), each updated once; kernel 1 launched 6 + 6 recomputed
+   times; ms per step and peak memory of both;
+22. "adaptive" (agg_mode="adaptive"): the CLI's dtu_test with seeded
+   weights (V-1 kernel-1 launches per pass), one batch on the kernel path
+   against the plain path (depth 0.05 mm, confidence 1e-3), ms per map; one
+   dtu_train step from phase 6's weights with seeded weight nets, kernel
+   against plain path (LOSS_RTOL; PATH_GRAD_RTOL over all parameters and
+   for the median; each parameter within the worst-parameter bound or 10x
+   what half an ulp of noise on the plain path's cost volumes does to it,
+   since the weight nets' scale-free parameters have gradients that batch
+   norm cancels), V-1 launches of kernels 1-3 per pass, ms per step;
+23. a "phases" line (wall seconds of each phase), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
    inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
    on each recipe path and "recipe_model_ms" on the recipes' tensors;
-   launches on the dp and vp paths and "vp_model_ms"; the scatter's atomic
+   launches on the dp and vp paths and "vp_model_ms"; launches on the
+   model options' paths and "bf16_eval_model_ms"; the scatter's atomic
    adds), the card line, and the final {"ok": true, "device": {...}} line.
 
 A rank that fails or outlives RANKS_TIMEOUT_S fails its phase; torchrun
@@ -1475,6 +1504,311 @@ def blendedmvs_path(dev, tmp: str, checkpoint: str) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# phases 19-22, the model options: the CLI flags of each bf16 policy;
+# NUMERICS.json "tol" for bf16 maps against phase 5's fp32 maps; the bf16
+# step's loss against the fp32 step; remat's running statistics against the
+# step without remat
+BF16_POLICIES = {"nets": ["--feature_dtype", "bfloat16", "--costreg_dtype", "bfloat16"],
+                 "compute": ["--compute_dtype", "bfloat16"]}
+BF16_TOL = dict(mean_mm=0.2, p99_mm=2.0, max_mm=10.0, conf_mean=0.005)
+BF16_LOSS_RTOL, REMAT_STAT_RTOL = 1e-2, 1e-6
+
+
+def map_diffs(out_dir: str, ref_dir: str) -> dict:
+    """|depth| and |confidence| differences of the V maps of two runs."""
+    def read(root, kind, v):
+        return io.read_pfm(os.path.join(root, "scan1", kind, f"{v:08d}.pfm"))[0].astype(np.float64)
+
+    d = np.stack([np.abs(read(out_dir, "depth_est", v) - read(ref_dir, "depth_est", v))
+                  for v in range(V)])
+    c = np.stack([np.abs(read(out_dir, "confidence", v) - read(ref_dir, "confidence", v))
+                  for v in range(V)])
+    return dict(depth_mean_mm=float(d.mean()), depth_p99_mm=float(np.percentile(d, 99)),
+                depth_max_mm=float(d.max()), conf_mean=float(c.mean()), conf_max=float(c.max()))
+
+
+def forward_timing(model, imgs, proj, dv) -> dict:
+    """ms per map (median of 5 CUDA-event-timed batch-B forwards / B) and
+    the peak device memory of one forward."""
+    def forward():
+        with torch.inference_mode():
+            return model(imgs, proj, dv)
+
+    ms = time_ms(forward, 5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    forward()
+    torch.cuda.synchronize()
+    return dict(ms_per_map=ms / B, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def bf16_eval(dev, tmp: str) -> tuple[dict, list]:
+    """Phase 19: the CLI's --test --preset dtu_test on phase 5's scene and
+    seeded weights under each bf16 policy: launches, PFMs, depth and
+    confidence against phase 5's fp32 maps (BF16_TOL), ms per map and peak
+    memory beside the fp32 model's in this call; the tensors the first
+    policy's six cost passes hand kernel 1 (fp32, upcast from bf16) for
+    ``model_rows``."""
+    out, captured = {}, []
+    for name, flags in BF16_POLICIES.items():
+        out_dir = os.path.join(tmp, f"out_{name}")
+        argv = eval_argv(tmp) + flags + ["--outdir", out_dir]
+        cuda_build.reset_launches()
+        summary = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = cuda_build.launches()
+        expect_launches(f"bf16 eval ({name})", launches, warp_correlate=6 * -(-V // B))
+        check_pfms(out_dir, V)
+        diffs = map_diffs(out_dir, os.path.join(tmp, "out"))
+        if not (diffs["depth_mean_mm"] <= BF16_TOL["mean_mm"]
+                and diffs["depth_p99_mm"] <= BF16_TOL["p99_mm"]
+                and diffs["depth_max_mm"] <= BF16_TOL["max_mm"]
+                and diffs["conf_mean"] <= BF16_TOL["conf_mean"]):
+            raise AssertionError(f"bf16 eval ({name}) against fp32: {diffs}, limits {BF16_TOL}")
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        model = build_model(cfg, dev)
+        inputs = load_batch(cfg, dev)
+        if not captured:
+            with capture_calls(wc, "warp_correlate", captured), torch.inference_mode():
+                model(*inputs)
+            for feats, *_ in captured:
+                if feats.dtype != torch.float32 or not torch.equal(feats, feats.bfloat16().float()):
+                    raise AssertionError("kernel 1 did not receive bf16 features upcast to fp32")
+        out[name] = dict(flags=flags, maps=summary["maps"], launches=launches, **diffs,
+                         **forward_timing(model, *inputs))
+        del model
+    cfg = cli.config_from_args(cli.build_parser().parse_args(eval_argv(tmp)))
+    out["fp32"] = forward_timing(build_model(cfg, dev), *load_batch(cfg, dev))
+    out["policies_equal_maps"] = map_diffs(os.path.join(tmp, "out_nets"),
+                                           os.path.join(tmp, "out_compute"))["depth_max_mm"] == 0
+    return out, captured
+
+
+def option_inputs(dev, tmp: str, checkpoint: str):
+    """Phase 6's configuration, its weights (the checkpoint's) and one
+    validation batch on the card, for phases 20-22."""
+    cfg = cli.config_from_args(cli.build_parser().parse_args(train_argv(tmp, "logs_options")))
+    trainer = Trainer(cfg)
+    batch = trainer.to_device(next(iter(trainer.val_loader)))
+    sd = torch.load(checkpoint, map_location="cpu", weights_only=True)["model"]
+    return cfg, sd, batch
+
+
+def train_model(cfg, sd: dict, dev, **options):
+    """The dtu_train MVSNet with ``options`` and the weights ``sd``; an
+    adaptive model's weight nets keep their seeded init."""
+    model = build_train_model(cfg.replace(**options), dev)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    if unexpected or any(not k.startswith("agg_weight") for k in missing):
+        raise AssertionError(f"weights: missing {missing}, unexpected {unexpected}")
+    return model
+
+
+def step_grads(model, cfg, batch, impl: str = "cuda") -> dict:
+    """One forward, loss and backward of ``model`` in train mode under
+    deterministic cuDNN (``impl`` "torch": the plain cost passes): loss,
+    gradients and new running statistics on the host, launches, and the
+    feature tensors the cost passes received with their gradients' dtype."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    seen, hooked_ids = [], set()
+    real = wc.aggregate_cost_volume
+
+    def hooked(feats, *args):
+        # once per tensor: remat's recompute hands the same features again
+        if feats.requires_grad and id(feats) not in hooked_ids:
+            hooked_ids.add(id(feats))
+            feats.register_hook(lambda g: seen.append(
+                (str(feats.dtype), str(g.dtype), bool(torch.isfinite(g.float()).all()))))
+        return real(feats, *args)
+
+    wc.aggregate_cost_volume = hooked
+    try:
+        model.warp_impl = impl
+        model.train()
+        model.zero_grad(set_to_none=True)
+        cuda_build.reset_launches()
+        out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+        loss = mvs_loss(out, batch["depth"], batch["mask"], cfg.depth_mode, tuple(cfg.dlossw))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = cuda_build.launches()
+    finally:
+        wc.aggregate_cost_volume = real
+        torch.backends.cudnn.deterministic = saved
+        model.warp_impl = "cuda"
+    return dict(loss=loss.item(), launches=launches, feats=seen,
+                grads={n: p.grad.to("cpu", copy=True) for n, p in model.named_parameters()},
+                state={k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
+                       if ".running_" in k or k.endswith("num_batches_tracked")})
+
+
+def step_timing(model, cfg, batch, n: int = 3) -> dict:
+    """ms per train step (median of ``n`` CUDA-event-timed steps after one
+    untimed, Adam at learning rate 0 so the weights stay) and the peak
+    device memory of those steps."""
+    optimizer, scheduler = make_optimizer(model.parameters(), lambda i: 0.0)
+    step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
+    step(model, optimizer, scheduler, batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    for _ in range(n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step(model, optimizer, scheduler, batch)
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return dict(ms_per_step=statistics.median(s.elapsed_time(e) for s, e in events),
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def bf16_train(dev, inputs, yardstick: dict) -> dict:
+    """Phase 20: one dtu_train step at compute_dtype=bfloat16 from phase 6's
+    weights against the fp32 step: loss (BF16_LOSS_RTOL), gradients as
+    relative L2 differences beside phase 6's yardstick, the six cost
+    passes' features bf16 with bf16, finite gradients, kernels 1-3 launched
+    six times each; ms per step and peak memory."""
+    cfg, sd, batch = inputs
+    fp32 = step_grads(train_model(cfg, sd, dev), cfg, batch)
+    model = train_model(cfg, sd, dev, compute_dtype="bfloat16")
+    bf = step_grads(model, cfg, batch)
+    expect_launches("bf16 train step", bf["launches"], warp_correlate=6,
+                    warp_correlate_grad_ref=6, warp_correlate_grad_src=6)
+    if len(bf["feats"]) != 6 or any(f != ("torch.bfloat16", "torch.bfloat16", True)
+                                    for f in bf["feats"]):
+        raise AssertionError(f"bf16 step: feature tensors and gradients {bf['feats']}")
+    rel = abs(bf["loss"] - fp32["loss"]) / abs(fp32["loss"])
+    if not (np.isfinite(bf["loss"]) and rel <= BF16_LOSS_RTOL):
+        raise AssertionError(f"bf16 step loss {bf['loss']} against fp32 {fp32['loss']}")
+    return dict(loss_fp32=fp32["loss"], loss_bf16=bf["loss"], loss_rel_diff=rel,
+                grad_rel_l2_diff_vs_fp32=grad_diff(bf["grads"], fp32["grads"]),
+                phase6_yardstick=yardstick, launches=bf["launches"],
+                feature_grads=sorted(set(bf["feats"])), **step_timing(model, cfg, batch))
+
+
+def remat_phase(dev, inputs) -> dict:
+    """Phase 21: the step with remat=True against remat=False under
+    deterministic cuDNN, from the same weights: loss (LOSS_RTOL), gradients
+    (PATH_GRAD_RTOL: kernel 2's atomic sums differ from run to run),
+    running statistics (REMAT_STAT_RTOL * max(1, |stat|)), each updated
+    once; kernel 1 launched 6 times in the forward and 6 more in the
+    recompute; ms per step and peak memory of both."""
+    cfg, sd, batch = inputs
+    runs = {}
+    for remat in (False, True):
+        model = train_model(cfg, sd, dev, remat=remat)
+        held = step_grads(model, cfg, batch)
+        expect_launches(f"remat={remat} step", held["launches"],
+                        warp_correlate=12 if remat else 6, warp_correlate_grad_ref=6,
+                        warp_correlate_grad_src=6)
+        runs[remat] = dict(held, **step_timing(model, cfg, batch))
+        del model
+    off, on = runs[False], runs[True]
+    stat_err = max((on["state"][k].double() - v.double()).abs().max().item()
+                   / max(1.0, v.abs().max().item())
+                   for k, v in off["state"].items() if ".running_" in k)
+    tracked = {k: int(on["state"][k]) - int(sd[k]) for k in off["state"]
+               if k.endswith("num_batches_tracked")}
+    loss_rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    grads = grad_diff(on["grads"], off["grads"])
+    if not (loss_rel <= LOSS_RTOL and stat_err <= REMAT_STAT_RTOL
+            and set(tracked.values()) == {1} and np.isfinite(on["loss"])
+            and all(np.isfinite(grads[k]) and grads[k] <= t for k, t in PATH_GRAD_RTOL.items())):
+        raise AssertionError(f"remat against no remat: loss {loss_rel}, gradients {grads}, "
+                             f"statistics {stat_err}, updates {set(tracked.values())}")
+    return dict(loss=off["loss"], loss_remat=on["loss"], loss_rel_diff=loss_rel,
+                grad_rel_l2_diff=grads, stat_rel_diff=stat_err,
+                stat_updates=sorted(set(tracked.values())),
+                launches={"remat": on["launches"], "no_remat": off["launches"]},
+                ms_per_step=on["ms_per_step"], peak_mem_gb=on["peak_mem_gb"],
+                no_remat_ms_per_step=off["ms_per_step"], no_remat_peak_mem_gb=off["peak_mem_gb"])
+
+
+def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
+    """Phase 22, agg_mode="adaptive": the CLI's dtu_test on phase 5's scene
+    with seeded weights (V-1 kernel-1 launches per pass); one batch of that
+    model on the kernel path against the plain path (depth 0.05 mm,
+    confidence 1e-3) and its ms per map; one dtu_train step from phase 6's
+    weights with seeded weight nets, kernel path against plain path
+    (LOSS_RTOL, PATH_GRAD_RTOL over all parameters and for the median; each
+    parameter within the worst-parameter bound or 10x this model's own
+    yardstick for it, below), V-1 launches of each kernel per pass, and its
+    ms per step."""
+    out_dir = os.path.join(tmp, "out_adaptive")
+    argv = eval_argv(tmp) + ["--agg_mode", "adaptive", "--outdir", out_dir]
+    per_pass = V - 1
+    cuda_build.reset_launches()
+    summary = cli.main(argv)
+    torch.cuda.synchronize()
+    cli_launches = cuda_build.launches()
+    expect_launches("adaptive eval", cli_launches, warp_correlate=6 * per_pass * -(-V // B))
+    check_pfms(out_dir, V)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    model = build_model(cfg, dev)
+    imgs, proj, dv = load_batch(cfg, dev)
+
+    def forward(impl):
+        model.warp_impl = impl
+        with torch.inference_mode():
+            return model(imgs, proj, dv)
+
+    out_p = forward("torch")
+    cuda_build.reset_launches()
+    out_k = forward("cuda")
+    torch.cuda.synchronize()
+    expect_launches("adaptive forward", cuda_build.launches(), warp_correlate=6 * per_pass)
+    d_err = (out_k["depth"] - out_p["depth"]).abs().max().item()
+    c_err = (out_k["photometric_confidence"] - out_p["photometric_confidence"]).abs().max().item()
+    if not (d_err <= 0.05 and c_err <= 1e-3 and bool(torch.isfinite(out_k["depth"]).all())):
+        raise AssertionError(f"adaptive kernel vs plain model: depth {d_err} mm, conf {c_err}")
+    timing = forward_timing(model, imgs, proj, dv)
+    del model, out_k, out_p
+
+    tcfg, sd, batch = inputs
+    model = train_model(tcfg, sd, dev, agg_mode="adaptive")
+    k = step_grads(model, tcfg, batch)
+    expect_launches("adaptive step", k["launches"], warp_correlate=6 * per_pass,
+                    warp_correlate_grad_ref=6 * per_pass, warp_correlate_grad_src=6 * per_pass)
+    p = step_grads(model, tcfg, batch, impl="torch")
+    with ulp_noise_on_plain_cost_volumes():
+        y = step_grads(model, tcfg, batch, impl="torch")
+    loss_rel = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    paths = grad_diff(k["grads"], p["grads"])
+    # The weight nets are scale-free where a train-mode batch norm follows:
+    # the second convolution is one weight (1 -> 1 channel) whose scale the
+    # next batch norm undoes but for eps, and the first batch norm's scale
+    # cancels against its shift behind the ReLU.  Their gradients are
+    # residues of cancelling terms (at 64x96 on the CPU -1.9e-4 for a second
+    # convolution where the first one's are -57 and -23), so their relative
+    # differences between two paths are noise over noise.  Each parameter is
+    # therefore held to the worst-parameter bound or to 10x what half an
+    # ulp of noise on the plain path's cost volumes does to it (this model's
+    # own yardstick), whichever is larger; the bounds over all parameters
+    # and the median hold as they are.
+    def rel(grads, n):
+        return (grads[n] - p["grads"][n]).norm().item() / max(p["grads"][n].norm().item(), 1e-30)
+
+    own_yardstick = grad_diff(y["grads"], p["grads"])
+    worst = PATH_GRAD_RTOL["worst_parameter"]
+    per_param = {n: (rel(k["grads"], n), rel(y["grads"], n)) for n in p["grads"]}
+    beyond = {n: dict(paths=a, yardstick=b) for n, (a, b) in per_param.items() if a > worst}
+    if not (np.isfinite(k["loss"]) and loss_rel <= LOSS_RTOL
+            and all(np.isfinite(paths[n]) and paths[n] <= PATH_GRAD_RTOL[n]
+                    for n in ("all_parameters", "median_parameter"))
+            and all(np.isfinite(a) and a <= max(worst, 10 * b) for a, b in per_param.values())):
+        raise AssertionError(f"adaptive kernel vs plain step: loss {loss_rel}, gradients {paths}, "
+                             f"beyond {worst}: {beyond}, yardstick {own_yardstick}")
+    return dict(maps=summary["maps"], cli_launches=cli_launches,
+                depth_max_abs_diff_mm=d_err, conf_max_abs_diff=c_err,
+                ms_per_map=timing["ms_per_map"], eval_peak_mem_gb=timing["peak_mem_gb"],
+                step_launches=k["launches"], loss_kernel=k["loss"], loss_plain=p["loss"],
+                loss_rel_diff=loss_rel, grad_rel_l2_diff_paths=paths,
+                beyond_worst_bound=beyond, yardstick=own_yardstick, phase6_yardstick=yardstick,
+                **step_timing(model, tcfg, batch))
+
+
 @contextlib.contextmanager
 def counting_all_reduce():
     """Within the block every ``torch.distributed.all_reduce`` of the port
@@ -1774,11 +2108,13 @@ def gloo_ranks(dev, tmp: str, train_argv: list[str], test_argv: list[str],
 
 
 def report(every: list[dict], eval_launches, train_launches, epi_launches,
-           fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict]) -> None:
+           fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict],
+           options: dict[str, dict]) -> None:
     """The "kernels" line, from the rows of the five kernels on synthetic
     and model inputs; ``recipes`` are the launch counts of each recipe path
     of phases 11-15, each read just after the path ran from counts at 0;
-    ``parallel`` those of phases 16-18 (per rank on the gloo paths)."""
+    ``parallel`` those of phases 16-18 (per rank on the gloo paths);
+    ``options`` those of the model options' paths, phases 19-22."""
 
     def rows_of(kernel, inputs, cameras="translate"):
         return [r for r in every if r.get("kernel", "warp_correlate") == kernel
@@ -1800,11 +2136,15 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
             by[r["bound_by"]] += r["bound_ms"]
         library = [r["library_ms"] for r in rows if "library_ms" in r]
         orbit = rows_of(name, "synthetic", "orbit")
-        held = [r for inputs in (*RECIPE_INPUTS, "model vp") for r in rows_of(name, inputs)]
+        held = [r for inputs in (*RECIPE_INPUTS, "model vp", "model bf16 eval")
+                for r in rows_of(name, inputs)]
         extra["recipe_launches"] = {path: n[name] for path, n in recipes.items()}
         extra["parallel_launches"] = {path: n[name] for path, n in parallel.items()}
+        extra["option_launches"] = {path: n[name] for path, n in options.items()}
         vp = rows_of(name, "model vp")
         extra["vp_model_ms"] = sum(r["kernel_ms"] for r in vp) if vp else None
+        bf16 = rows_of(name, "model bf16 eval")
+        extra["bf16_eval_model_ms"] = sum(r["kernel_ms"] for r in bf16) if bf16 else None
         extra["recipe_model_ms"] = {inputs: sum(r["kernel_ms"] for r in rows_of(name, inputs))
                                     for inputs in RECIPE_INPUTS if rows_of(name, inputs)}
         return {"name": name, "route": "cuda", "source": f"dmvsnet_tpu_torch/csrc/{name}.cu",
@@ -1824,6 +2164,8 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
     # one forward (eval shapes; for the resample kernel its four launches per
     # pass) or one backward (train shapes) on the smoke's synthetic inputs;
     # vp_model_ms kernel 1 on rank 0's six passes of the vp forward (phase 18);
+    # bf16_eval_model_ms kernel 1 on the six passes of one bf16 dtu_test batch
+    # (phase 19, the features upcast); option_launches those of phases 19-22;
     # model_ms the same on the inputs of one dtu_test batch (kernel 1), one
     # dtu_train step (kernels 2 and 3) or one dtu_test batch of the epipolar
     # model with all six passes routed (kernels 4 and 5); recipe_model_ms
@@ -1996,6 +2338,24 @@ def main() -> None:
         model += model_rows(vp_passes, "model vp")
         del vp_passes
 
+        # the model options: the bf16 policies, remat, adaptive aggregation;
+        # kernel 1 on the upcast inputs of one bf16 batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        bf16e, captured = timed("bf16_eval", bf16_eval, dev, tmp)
+        print("bf16_eval " + json.dumps(bf16e), flush=True)
+        model += model_rows(captured, "model bf16 eval")
+        del captured
+        inputs = timed("option_inputs", option_inputs, dev, tmp, train["checkpoint"])
+        yardstick = train["grad_rel_l2_diff_yardstick"]
+        bf16t = timed("bf16_train", bf16_train, dev, inputs, yardstick)
+        print("bf16_train " + json.dumps(bf16t), flush=True)
+        remat = timed("remat", remat_phase, dev, inputs)
+        print("remat " + json.dumps(remat), flush=True)
+        adaptive = timed("adaptive", adaptive_phase, dev, tmp, inputs, yardstick)
+        print("adaptive " + json.dumps(adaptive), flush=True)
+        del inputs
+
     print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
           flush=True)
     report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
@@ -2005,7 +2365,12 @@ def main() -> None:
                 blendedmvs=bmvs["launches"]),
            dict(dp_nccl_run=nccl["launches"], dp_gloo_step_rank0=dp["launches_per_rank"][0],
                 vp_forward_rank0=vp["forward"]["launches_per_rank"][0],
-                vp_step_rank0=vp["step"]["launches_per_rank"][0]))
+                vp_step_rank0=vp["step"]["launches_per_rank"][0]),
+           dict(bf16_eval_nets=bf16e["nets"]["launches"],
+                bf16_eval_compute=bf16e["compute"]["launches"],
+                bf16_train_step=bf16t["launches"], remat_step=remat["launches"]["remat"],
+                no_remat_step=remat["launches"]["no_remat"],
+                adaptive_eval=adaptive["cli_launches"], adaptive_step=adaptive["step_launches"]))
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

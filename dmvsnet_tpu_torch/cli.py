@@ -42,14 +42,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ndepths", type=int, nargs="+", default=None)
     p.add_argument("--interval_ratio", type=float, nargs="+", default=None)
     p.add_argument("--inverse_depth", action="store_true", default=None)
-    p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"])
+    p.add_argument("--compute_dtype", default=None, choices=["auto", "float32", "bfloat16"],
+                   help="dtype the features are cast to and the default of the two below "
+                        "(auto = float32); the cost passes run fp32 either way")
     p.add_argument("--warp_impl", default=None, choices=["auto", "cuda", "epipolar", "torch"],
                    help="cost pass: auto = the exact CUDA kernel on the card (plain torch on "
                         "the CPU); epipolar = the rectified 1-D sweep, an eval-time "
                         "approximation gated by NUMERICS.json tol.epi_*")
-    p.add_argument("--costreg_dtype", default=None, choices=["auto", "float32", "bfloat16"])
-    p.add_argument("--feature_dtype", default=None, choices=["auto", "float32", "bfloat16"])
-    p.add_argument("--remat", action="store_true", default=None)
+    p.add_argument("--costreg_dtype", default=None, choices=["auto", "float32", "bfloat16"],
+                   help="cost U-Nets' compute dtype (auto, float32: as --compute_dtype)")
+    p.add_argument("--feature_dtype", default=None, choices=["auto", "float32", "bfloat16"],
+                   help="feature net's compute dtype (auto, float32: as --compute_dtype)")
+    p.add_argument("--remat", action="store_true", default=None,
+                   help="training: recompute the feature net, cost U-Nets and cost passes "
+                        "in the backward")
 
     # dataset
     p.add_argument("--datapath", default=None)

@@ -6,9 +6,11 @@ Port differences: ``warp_impl`` takes ``auto | cuda | epipolar | torch``.
 PyTorch version on the CPU.  ``epipolar`` = the rectified 1-D sweep at the
 (stage, pass) pairs the model routes to it: an eval-time approximation
 (two extra resamples) gated by ``NUMERICS.json`` ``tol.epi_*``, never chosen
-by ``auto``; training with it runs the exact kernel.  The port runs fp32
-throughout, so ``auto`` means float32 for ``costreg_dtype`` and
-``feature_dtype``.
+by ``auto``; training with it runs the exact kernel.  ``compute_dtype``,
+``costreg_dtype`` and ``feature_dtype`` take ``auto | float32 | bfloat16``
+and resolve as the JAX package resolves them off a TPU
+(``engine/train.resolve_dtypes``): ``auto`` never picks bfloat16, and
+``float32`` for the two nets means "as ``compute_dtype``".
 """
 
 from __future__ import annotations
@@ -27,10 +29,10 @@ class Config:
     ndepths: Sequence[int] = (48, 32, 8)
     interval_ratio: Sequence[float] = (4.0, 2.0, 1.0)
     inverse_depth: bool = False
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # auto (= float32) | float32 | bfloat16
     warp_impl: str = "auto"  # auto | cuda | epipolar (eval-time approximation) | torch
-    costreg_dtype: str = "auto"  # auto (= float32) | float32
-    feature_dtype: str = "auto"  # auto (= float32) | float32
+    costreg_dtype: str = "auto"  # auto | float32 (both: as compute_dtype) | bfloat16
+    feature_dtype: str = "auto"  # auto | float32 (both: as compute_dtype) | bfloat16
     remat: bool = False
 
     # dataset

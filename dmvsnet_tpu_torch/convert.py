@@ -13,6 +13,13 @@ port's own module layout.  Kernel layouts:
   flax ConvTranspose with transpose_kernel stores (k..,O,I) -> torch
   ConvTranspose (I,O,k..): the same axis permutation.
 
+The adaptive mode's weight nets have no reference name (the reference
+builds them but never calls them).  The port names them beside the cost
+U-Nets: JAX ``agg_weight_{s}/w{0,1}/{conv,bn}`` (main pass of stage s) is
+``agg_weight.{s}.w{0,1}.{conv,bn}``, and ``agg_weight_{s}_c`` (the refine
+pass) ``agg_weight_refine.{s}.w{0,1}.{conv,bn}``; their convs are 1x1x1
+without bias, their batch norms carry weight / bias / running statistics.
+
 ``num_batches_tracked`` has no JAX counterpart and is left out; PyTorch's
 batch norm fills it in on load, so the dict loads with ``strict=True``.
 
@@ -63,6 +70,10 @@ def _module_path(path: tuple) -> str:
         if module == "prob":                    # a raw conv
             return f"{name}.{stage}.{branch}.prob"
         return ".".join([name, stage, branch, module, *path[3:]])
+    if top.startswith("agg_weight_"):
+        stage, _, refine = top[len("agg_weight_"):].partition("_")
+        name = "agg_weight_refine" if refine == "c" else "agg_weight"
+        return ".".join([name, stage, *path[1:]])
     raise KeyError(f"cannot map JAX parameter path {path!r}")
 
 
@@ -116,6 +127,9 @@ def jax_tree_from_state_dict(state_dict: dict) -> tuple[dict, dict]:
         elif mod[0] in ("cost_regularization", "cost_regularization_refine"):
             top = ("cost_reg_refine_" if mod[0].endswith("refine") else "cost_reg_") + mod[1]
             path = [top, *mod[2:]] + (["conv"] if mod[3] == "prob" else [])
+        elif mod[0] in ("agg_weight", "agg_weight_refine"):
+            path = [f"agg_weight_{mod[1]}" + ("_c" if mod[0].endswith("refine") else ""),
+                    *mod[2:]]
         else:
             raise KeyError(f"unrecognized state-dict key {key!r}")
         if path[-1] == "bn":

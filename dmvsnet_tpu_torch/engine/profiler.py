@@ -4,6 +4,10 @@
         [--tf32] [--cudnn-benchmark]
     python3 -m dmvsnet_tpu_torch.engine.profiler --train [--tf32] [--cudnn-benchmark]
 
+Both take the model options of the CLI: ``--compute_dtype``,
+``--costreg_dtype``, ``--feature_dtype`` (auto | float32 | bfloat16),
+``--agg_mode`` (variance | adaptive) and, with ``--train``, ``--remat``.
+
 Builds the DTU-eval MVSNet (864x1152, 5 views, ndepths 48/32/8, inverse
 depth, seeded random weights) on CUDA and times one batch forward with
 CUDA events: the whole forward, the feature net, each cost U-Net, the
@@ -122,9 +126,11 @@ def breakdown(model, inputs, reps: int = 3) -> dict[str, float]:
         return run
 
     real_exact, real_epi = wc.aggregate_cost_volume, es.aggregate_cost_volume_epipolar
+    real_adaptive = wc.aggregate_cost_volume_adaptive
     real_launch, timed_launch = _timed_launches(spans)
     runs = []
     wc.aggregate_cost_volume = timed_pass(real_exact)
+    wc.aggregate_cost_volume_adaptive = timed_pass(real_adaptive)
     es.aggregate_cost_volume_epipolar = timed_pass(real_epi)
     cuda_build.launch = timed_launch
     try:
@@ -138,6 +144,7 @@ def breakdown(model, inputs, reps: int = 3) -> dict[str, float]:
                 runs.append(spans.ms())
     finally:
         wc.aggregate_cost_volume, es.aggregate_cost_volume_epipolar = real_exact, real_epi
+        wc.aggregate_cost_volume_adaptive = real_adaptive
         cuda_build.launch = real_launch
         for h in hooks:
             h.remove()
@@ -196,8 +203,14 @@ def train_breakdown(cfg, model, optimizer, scheduler, batch, reps: int = 3):
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}, step
 
 
+def _options(args) -> dict:
+    """The model options of the command line, as Config fields."""
+    return dict(compute_dtype=args.compute_dtype, costreg_dtype=args.costreg_dtype,
+                feature_dtype=args.feature_dtype, agg_mode=args.agg_mode)
+
+
 def main_train(args, device) -> None:
-    cfg = preset("dtu_train")
+    cfg = preset("dtu_train", remat=args.remat, **_options(args))
     model = build_train_model(cfg, device)
     optimizer, scheduler = make_optimizer(
         model.parameters(), make_lr_schedule(cfg.lr, 1, cfg.scheduler, cfg.warmup,
@@ -209,7 +222,8 @@ def main_train(args, device) -> None:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     print("train_breakdown " + json.dumps(dict(
-        device=torch.cuda.get_device_name(0), batch=cfg.batch_size, tf32=args.tf32,
+        device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
+        **_options(args), tf32=args.tf32,
         cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9, ms=times)), flush=True)
     print(_profiled(step), flush=True)
 
@@ -220,6 +234,10 @@ def main(argv=None) -> None:
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--warp_impl", default="auto", choices=["auto", "cuda", "epipolar", "torch"],
                    help="cost passes of the eval forward (epipolar: the model's routing)")
+    for name in ("compute_dtype", "costreg_dtype", "feature_dtype"):
+        p.add_argument(f"--{name}", default="auto", choices=["auto", "float32", "bfloat16"])
+    p.add_argument("--agg_mode", default="variance", choices=["variance", "adaptive"])
+    p.add_argument("--remat", action="store_true", help="with --train: rematerialise")
     p.add_argument("--tf32", action="store_true", help="measure with TF32 convolutions")
     p.add_argument("--cudnn-benchmark", action="store_true",
                    help="measure with cuDNN's algorithm search")
@@ -232,7 +250,7 @@ def main(argv=None) -> None:
         main_train(args, device)
         return
     cfg = preset("dtu_test", filter_method="none", eval_batch=args.batch,
-                 warp_impl=args.warp_impl)
+                 warp_impl=args.warp_impl, **_options(args))
     model = build_model(cfg, device)
     inputs = _inputs(cfg, args.batch, device)
     times = breakdown(model, inputs)
@@ -242,7 +260,8 @@ def main(argv=None) -> None:
     peak = torch.cuda.max_memory_allocated()
     print("breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
-        tf32=args.tf32, cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9,
+        **_options(args), tf32=args.tf32, cudnn_benchmark=args.cudnn_benchmark,
+        peak_mem_gb=peak / 1e9,
         ms_per_map=times["forward"] / args.batch, ms=times)), flush=True)
     print(kernel_table(model, inputs), flush=True)
 

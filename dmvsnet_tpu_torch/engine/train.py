@@ -59,26 +59,34 @@ class AverageMeter:
         return {k: float(v) / max(self.count, 1) for k, v in self.sums.items()}
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def resolve_dtypes(cfg: Config) -> dict[str, torch.dtype | None]:
+    """``MVSNet``'s dtype arguments from ``cfg``, as the JAX package's
+    ``build_model`` resolves them off a TPU: ``compute_dtype`` is the
+    model's ``dtype`` ("auto" = float32); ``costreg_dtype`` and
+    ``feature_dtype`` "bfloat16" set their nets to bf16, while "float32" and
+    "auto" give None, which follows ``dtype``.  "auto" never picks bf16 in
+    the port: the JAX package picks it at eval on a TPU from TPU
+    measurements, and the card's are in ``PERF.md``."""
+    for name in ("compute_dtype", "costreg_dtype", "feature_dtype"):
+        if getattr(cfg, name) not in ("auto", *_DTYPES):
+            raise ValueError(f"{name} must be auto, float32 or bfloat16, "
+                             f"got {getattr(cfg, name)!r}")
+    net = {"auto": None, "float32": None, "bfloat16": torch.bfloat16}
+    return dict(dtype=_DTYPES.get(cfg.compute_dtype, torch.float32),
+                costreg_dtype=net[cfg.costreg_dtype], feature_dtype=net[cfg.feature_dtype])
+
+
 def build_model(cfg: Config, device: torch.device, mesh=None) -> MVSNet:
     """The MVSNet of ``cfg`` on ``device`` with a seeded random init from
     ``cfg.seed`` (the same seed gives the same weights on every device), in
-    train mode, on ``mesh`` (a ``parallel.Mesh``) if given.  Raises for what
-    the port does not run yet."""
+    train mode, on ``mesh`` (a ``parallel.Mesh``) if given, with ``cfg``'s
+    aggregation, dtypes (``resolve_dtypes``) and remat.  Raises for what
+    the port does not run."""
     if cfg.fea_mode != "fpn":
         raise NotImplementedError(f"fea_mode={cfg.fea_mode!r}: only 'fpn' is implemented")
-    if cfg.agg_mode != "variance":
-        raise NotImplementedError(
-            f"agg_mode={cfg.agg_mode!r}: adaptive aggregation is not ported yet "
-            "(ROADMAP.md, open items §1: adaptive aggregation)")
-    for name in ("compute_dtype", "costreg_dtype", "feature_dtype"):
-        if getattr(cfg, name) not in ("auto", "float32"):
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r}: the port runs fp32 only "
-                "(ROADMAP.md, open items §1: bf16 policies)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet (ROADMAP.md, open items §1: "
-            "rematerialisation with torch.utils.checkpoint)")
     # "auto" never means the epipolar sweep: it is an approximation, taken
     # only on request (on CPU tensors its wrappers run their plain versions)
     impl = cfg.warp_impl
@@ -94,7 +102,8 @@ def build_model(cfg: Config, device: torch.device, mesh=None) -> MVSNet:
     with torch.device("meta"):
         model = MVSNet(ndepths=tuple(cfg.ndepths),
                        depth_interval_ratio=tuple(cfg.interval_ratio),
-                       inverse_depth=cfg.inverse_depth, warp_impl=impl, mesh=mesh)
+                       inverse_depth=cfg.inverse_depth, warp_impl=impl, mesh=mesh,
+                       agg_mode=cfg.agg_mode, remat=cfg.remat, **resolve_dtypes(cfg))
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device).train()

@@ -12,7 +12,21 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
 * under data parallelism (``sync_batch_norm``) train-mode batch norm takes
   its statistics over the global batch, as flax does under jit over a
   dp-sharded batch: the mean and the biased variance of the dp group's
-  joined batch, and the running variance takes the same biased update.
+  joined batch, and the running variance takes the same biased update;
+* a block has a compute dtype (fp32 or bf16), with the JAX package's cast
+  points (``dmvsnet_tpu/models/blocks.py``): parameters stay fp32; a conv
+  casts its input, weight and bias to the block dtype and returns that
+  dtype; train-mode batch norm takes fp32 statistics, computes in fp32 and
+  returns fp32; eval-mode batch norm computes in fp32 on the running
+  statistics (flax 0.12's ``_normalize`` subtracts the fp32 mean from the
+  input first) and returns the block dtype.  This is the ``blocks.py`` form
+  of the JAX package, not the fold-then-apply form of its
+  ``models/folded.py`` (scale and shift folded in fp32, applied in the
+  input dtype); ReLU and the skip sums keep the dtype their operands give,
+  as the jnp ops do (bf16 + fp32 is fp32 in both);
+* ``checkpoint`` is ``torch.utils.checkpoint`` for the model's remat: a
+  batch norm recomputed in the backward updates no running statistic, so
+  a step updates them once, as the step without remat does.
 
 Attribute names follow the reference layout (``.conv`` and ``.bn``), so a
 reference-named state dict loads as is.
@@ -20,17 +34,41 @@ reference-named state dict loads as is.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from dmvsnet_tpu_torch.parallel.mesh import psum
 
-_CONV = {2: nn.Conv2d, 3: nn.Conv3d}
-_DECONV = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+# .active is True while ``checkpoint`` recomputes a forward inside the
+# backward, in the thread that runs that backward
+_recomputing = threading.local()
+
+
+@contextlib.contextmanager
+def _recompute():
+    _recomputing.active = True
+    try:
+        yield
+    finally:
+        _recomputing.active = False
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): only
+    the inputs are kept, and the backward runs ``fn`` again.  During that
+    recompute every batch norm normalises as it did in the forward (batch
+    statistics, or a synced all_reduce in the same order on every rank)
+    and leaves its running statistics alone."""
+    return torch_checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute()))
 
 
 class _BiasedRunningVar:
@@ -59,8 +97,12 @@ class _BiasedRunningVar:
             return self._synced_forward(x)
         m = self.momentum
         var = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
-                         True, m, self.eps)
+        # a recompute updates copies: the same call, no buffer moves
+        recomputing = getattr(_recomputing, "active", False)
+        mean = self.running_mean.clone() if recomputing else self.running_mean
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
+        if recomputing:
+            return y
         n = x.numel() // x.shape[1]
         # torch wrote var = (1-m) old + m b n/(n-1), b the biased variance;
         # (n-1)/n var + (1-m)/n old = (1-m) old + m b
@@ -94,6 +136,8 @@ class _BiasedRunningVar:
         var = (m2.sum(0) + (counts * (means - mean).square()).sum(0)) / count
         y = (x - mean.view(shape)) * (torch.rsqrt(var + self.eps) * self.weight).view(shape)
         y = y + self.bias.view(shape)
+        if getattr(_recomputing, "active", False):
+            return y
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -123,49 +167,96 @@ def sync_batch_norm(module: nn.Module, process_group) -> nn.Module:
     return module
 
 
-class ConvBlock(nn.Module):
-    """Conv{2,3}d + optional BatchNorm + optional ReLU."""
+class _Cast:
+    """A conv that casts its input, weight and bias to ``compute_dtype``
+    (fp32 parameters; the output in that dtype, as flax's ``dtype=``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-                 dims: int = 2, relu: bool = True, bn: bool = True):
-        super().__init__()
-        self.conv = _CONV[dims](in_ch, out_ch, kernel, stride=stride,
-                                padding=kernel // 2, bias=not bn)
-        self.bn = _BN[dims](out_ch, eps=1e-5, momentum=0.1) if bn else None
-        self.relu = relu
+    compute_dtype = torch.float32
+
+    def _cast(self, x):
+        dt = self.compute_dtype
+        return x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+
+class Conv2d(_Cast, nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._cast(x))
+
+
+class Conv3d(_Cast, nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self._cast(x))
+
+
+class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(*self._cast(x), self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+class ConvTranspose3d(_Cast, nn.ConvTranspose3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(*self._cast(x), self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
+
+
+_CONV = {2: Conv2d, 3: Conv3d}
+_DECONV = {2: ConvTranspose2d, 3: ConvTranspose3d}
+
+
+def _with_dtype(conv: nn.Module, dtype: torch.dtype) -> nn.Module:
+    conv.compute_dtype = dtype
+    return conv
+
+
+class _Block(nn.Module):
+    """conv, then batch norm (fp32 in train; fp32 arithmetic returning the
+    block dtype in eval), then ReLU."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x.float())
+            if not self.training:
+                x = x.to(self.dtype)
         return torch.relu(x) if self.relu else x
 
 
-class DeconvBlock(nn.Module):
+class ConvBlock(_Block):
+    """Conv{2,3}d + optional BatchNorm + optional ReLU."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
+                 dims: int = 2, relu: bool = True, bn: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = _with_dtype(_CONV[dims](in_ch, out_ch, kernel, stride=stride,
+                                            padding=kernel // 2, bias=not bn), dtype)
+        self.bn = _BN[dims](out_ch, eps=1e-5, momentum=0.1) if bn else None
+        self.relu = relu
+        self.dtype = dtype
+
+
+class DeconvBlock(_Block):
     """ConvTranspose{2,3}d(k, stride=2, padding=k//2, output_padding=1)
     + optional BatchNorm + optional ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, dims: int = 2,
-                 relu: bool = True, bn: bool = True):
+                 relu: bool = True, bn: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = _DECONV[dims](in_ch, out_ch, kernel, stride=2,
-                                  padding=kernel // 2, output_padding=1,
-                                  bias=not bn)
+        self.conv = _with_dtype(_DECONV[dims](in_ch, out_ch, kernel, stride=2,
+                                              padding=kernel // 2, output_padding=1,
+                                              bias=not bn), dtype)
         self.bn = _BN[dims](out_ch, eps=1e-5, momentum=0.1) if bn else None
         self.relu = relu
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
-        if self.bn is not None:
-            x = self.bn(x)
-        return torch.relu(x) if self.relu else x
+        self.dtype = dtype
 
 
 def PlainConv(in_ch: int, out_ch: int, kernel: int = 1, dims: int = 2,
-              use_bias: bool = False) -> nn.Module:
+              use_bias: bool = False, dtype: torch.dtype = torch.float32) -> nn.Module:
     """A bare conv (no bn / relu) with k//2 padding, as the FPN heads and
-    the probability heads use."""
-    return _CONV[dims](in_ch, out_ch, kernel, padding=kernel // 2, bias=use_bias)
+    the probability heads use; output in ``dtype``."""
+    return _with_dtype(_CONV[dims](in_ch, out_ch, kernel, padding=kernel // 2,
+                                   bias=use_bias), dtype)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,11 @@ Each branch is a 3-level 3D U-Net (stride-2 at each level, additive skips)
 with a 2-channel head; the refine variant collapses its 4-plane depth
 axis at the bottleneck and runs 2D convs there.  Cost volumes are
 (B, C, D, H, W) here; outputs (B, 4, D, H, W) with channels
-[small0, small1, huge0, huge1].
+[small0, small1, huge0, huge1].  ``dtype`` is every block's compute dtype
+(``models/blocks.py``).
+
+``AggWeightNetVolume`` is the per-voxel view-weight net of
+``agg_mode="adaptive"``: two 1x1x1 ConvBlocks (batch norm, ReLU), 2 -> 1 -> 1.
 """
 
 from __future__ import annotations
@@ -17,20 +21,21 @@ from dmvsnet_tpu_torch.models.blocks import ConvBlock, DeconvBlock, PlainConv
 
 
 class CostRegNetPart(nn.Module):
-    def __init__(self, in_channels: int = 2, base_channels: int = 8):
+    def __init__(self, in_channels: int = 2, base_channels: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         b = base_channels
-        self.conv0 = ConvBlock(in_channels, b, dims=3)
-        self.conv1 = ConvBlock(b, b * 2, stride=2, dims=3)
-        self.conv2 = ConvBlock(b * 2, b * 2, dims=3)
-        self.conv3 = ConvBlock(b * 2, b * 4, stride=2, dims=3)
-        self.conv4 = ConvBlock(b * 4, b * 4, dims=3)
-        self.conv5 = ConvBlock(b * 4, b * 8, stride=2, dims=3)
-        self.conv6 = ConvBlock(b * 8, b * 8, dims=3)
-        self.conv7 = DeconvBlock(b * 8, b * 4, dims=3)
-        self.conv9 = DeconvBlock(b * 4, b * 2, dims=3)
-        self.conv11 = DeconvBlock(b * 2, b, dims=3)
-        self.prob = PlainConv(b, 2, kernel=3, dims=3)
+        self.conv0 = ConvBlock(in_channels, b, dims=3, dtype=dtype)
+        self.conv1 = ConvBlock(b, b * 2, stride=2, dims=3, dtype=dtype)
+        self.conv2 = ConvBlock(b * 2, b * 2, dims=3, dtype=dtype)
+        self.conv3 = ConvBlock(b * 2, b * 4, stride=2, dims=3, dtype=dtype)
+        self.conv4 = ConvBlock(b * 4, b * 4, dims=3, dtype=dtype)
+        self.conv5 = ConvBlock(b * 4, b * 8, stride=2, dims=3, dtype=dtype)
+        self.conv6 = ConvBlock(b * 8, b * 8, dims=3, dtype=dtype)
+        self.conv7 = DeconvBlock(b * 8, b * 4, dims=3, dtype=dtype)
+        self.conv9 = DeconvBlock(b * 4, b * 2, dims=3, dtype=dtype)
+        self.conv11 = DeconvBlock(b * 2, b, dims=3, dtype=dtype)
+        self.prob = PlainConv(b, 2, kernel=3, dims=3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv0 = self.conv0(x)
@@ -47,20 +52,21 @@ class CostRegNetPartRefine(nn.Module):
     """Refine branch: 2D bottleneck at the collapsed D=1 level (the input
     always has D=4)."""
 
-    def __init__(self, in_channels: int = 2, base_channels: int = 8):
+    def __init__(self, in_channels: int = 2, base_channels: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         b = base_channels
-        self.conv0 = ConvBlock(in_channels, b, dims=3)
-        self.conv1 = ConvBlock(b, b * 2, stride=2, dims=3)
-        self.conv2 = ConvBlock(b * 2, b * 2, dims=3)
-        self.conv3 = ConvBlock(b * 2, b * 4, stride=2, dims=3)
-        self.conv4 = ConvBlock(b * 4, b * 4, dims=3)
-        self.conv5 = ConvBlock(b * 4, b * 8, stride=2, dims=2)
-        self.conv6 = ConvBlock(b * 8, b * 8, dims=2)
-        self.conv7 = DeconvBlock(b * 8, b * 4, dims=2)
-        self.conv9 = DeconvBlock(b * 4, b * 2, dims=3)
-        self.conv11 = DeconvBlock(b * 2, b, dims=3)
-        self.prob = PlainConv(b, 2, kernel=3, dims=3)
+        self.conv0 = ConvBlock(in_channels, b, dims=3, dtype=dtype)
+        self.conv1 = ConvBlock(b, b * 2, stride=2, dims=3, dtype=dtype)
+        self.conv2 = ConvBlock(b * 2, b * 2, dims=3, dtype=dtype)
+        self.conv3 = ConvBlock(b * 2, b * 4, stride=2, dims=3, dtype=dtype)
+        self.conv4 = ConvBlock(b * 4, b * 4, dims=3, dtype=dtype)
+        self.conv5 = ConvBlock(b * 4, b * 8, stride=2, dims=2, dtype=dtype)
+        self.conv6 = ConvBlock(b * 8, b * 8, dims=2, dtype=dtype)
+        self.conv7 = DeconvBlock(b * 8, b * 4, dims=2, dtype=dtype)
+        self.conv9 = DeconvBlock(b * 4, b * 2, dims=3, dtype=dtype)
+        self.conv11 = DeconvBlock(b * 2, b, dims=3, dtype=dtype)
+        self.prob = PlainConv(b, 2, kernel=3, dims=3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv0 = self.conv0(x)                                  # D=4
@@ -77,10 +83,10 @@ class CostRegNetPartRefine(nn.Module):
 class CostRegNet(nn.Module):
     """Dual branch: small + huge concatenated to 4 channels."""
 
-    def __init__(self, base_channels: int = 8):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cosR_small = CostRegNetPart(2, base_channels)
-        self.cosR_huge = CostRegNetPart(2, base_channels)
+        self.cosR_small = CostRegNetPart(2, base_channels, dtype)
+        self.cosR_huge = CostRegNetPart(2, base_channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([self.cosR_small(x), self.cosR_huge(x)], dim=1)
@@ -89,10 +95,25 @@ class CostRegNet(nn.Module):
 class CostRegNetRefine(nn.Module):
     """Dual refine branch."""
 
-    def __init__(self, base_channels: int = 8):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.cosR_small = CostRegNetPartRefine(2, base_channels)
-        self.cosR_huge = CostRegNetPartRefine(2, base_channels)
+        self.cosR_small = CostRegNetPartRefine(2, base_channels, dtype)
+        self.cosR_huge = CostRegNetPartRefine(2, base_channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([self.cosR_small(x), self.cosR_huge(x)], dim=1)
+
+
+class AggWeightNetVolume(nn.Module):
+    """Per-voxel aggregation weight logits of the adaptive cost mode (port
+    of ``dmvsnet_tpu.models.cost_reg.AggWeightNetVolume``): (B, 2, D, H, W)
+    -> (B, 1, D, H, W)."""
+
+    def __init__(self, in_channels: int = 2, hid_channels: int = 1, out_channels: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.w0 = ConvBlock(in_channels, hid_channels, kernel=1, dims=3, dtype=dtype)
+        self.w1 = ConvBlock(hid_channels, out_channels, kernel=1, dims=3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.w1(self.w0(x))

@@ -6,6 +6,7 @@ a main half (first cost pass) and a "_c" half (checkerboard refine pass).
 With base_channels=8: stage1 32(+32) at 1/4, stage2 16(+16) at 1/2,
 stage3 8(+8) at full resolution.  Module names follow the reference
 layout (``conv0.0`` ... ``conv2.2``, ``out1..3``, ``inner1..2``).
+``dtype`` is every block's compute dtype (``models/blocks.py``).
 """
 
 from __future__ import annotations
@@ -17,19 +18,23 @@ from dmvsnet_tpu_torch.models.blocks import ConvBlock, PlainConv, upsample_neare
 
 
 class FeatureNet(nn.Module):
-    def __init__(self, base_channels: int = 8):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = base_channels
-        self.conv0 = nn.Sequential(ConvBlock(3, c, 3, 1), ConvBlock(c, c, 3, 1))
-        self.conv1 = nn.Sequential(ConvBlock(c, c * 2, 5, 2), ConvBlock(c * 2, c * 2, 3, 1),
-                                   ConvBlock(c * 2, c * 2, 3, 1))
-        self.conv2 = nn.Sequential(ConvBlock(c * 2, c * 4, 5, 2), ConvBlock(c * 4, c * 4, 3, 1),
-                                   ConvBlock(c * 4, c * 4, 3, 1))
-        self.out1 = PlainConv(c * 4, c * 8, kernel=1)
-        self.inner1 = PlainConv(c * 2, c * 4, kernel=1, use_bias=True)
-        self.out2 = PlainConv(c * 4, c * 4, kernel=3)
-        self.inner2 = PlainConv(c, c * 4, kernel=1, use_bias=True)
-        self.out3 = PlainConv(c * 4, c * 2, kernel=3)
+
+        def conv(cin, cout, k, s):
+            return ConvBlock(cin, cout, k, s, dtype=dtype)
+
+        self.conv0 = nn.Sequential(conv(3, c, 3, 1), conv(c, c, 3, 1))
+        self.conv1 = nn.Sequential(conv(c, c * 2, 5, 2), conv(c * 2, c * 2, 3, 1),
+                                   conv(c * 2, c * 2, 3, 1))
+        self.conv2 = nn.Sequential(conv(c * 2, c * 4, 5, 2), conv(c * 4, c * 4, 3, 1),
+                                   conv(c * 4, c * 4, 3, 1))
+        self.out1 = PlainConv(c * 4, c * 8, kernel=1, dtype=dtype)
+        self.inner1 = PlainConv(c * 2, c * 4, kernel=1, use_bias=True, dtype=dtype)
+        self.out2 = PlainConv(c * 4, c * 4, kernel=3, dtype=dtype)
+        self.inner2 = PlainConv(c, c * 4, kernel=1, use_bias=True, dtype=dtype)
+        self.out3 = PlainConv(c * 4, c * 2, kernel=3, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (N, 3, H, W) -> {stage1..3, stage1_c..3_c}, each (N, C, h, w)."""

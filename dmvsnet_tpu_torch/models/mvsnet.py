@@ -25,7 +25,23 @@ package's ``train`` argument does.
   more than one rank and divides V-1 every cost pass sums the source views
   over it (``warp_correlate.aggregate_cost_volume_view_sharded``), ahead of
   the epipolar routing, which vp then never takes, as in the JAX package.
-  Without a mesh, or with vp = 1, the forward is the one-process forward.
+  Without a mesh, or with vp = 1, the forward is the one-process forward;
+* ``agg_mode="adaptive"`` gates each source view's correlation by a learned
+  per-voxel weight before the view sum (``models/cost_reg.AggWeightNetVolume``,
+  one net per stage and pass, called once per source view; kernel 1 on each
+  (reference, source) pair: ``warp_correlate.aggregate_cost_volume_adaptive``).
+  It takes precedence over the vp sum and the epipolar routing, as in the
+  JAX package;
+* dtypes as in the JAX package: ``dtype`` (compute) is what the features
+  are cast to after the feature net; ``feature_dtype`` / ``costreg_dtype``
+  (None: ``dtype``) are the compute dtypes of the feature net and of the
+  cost U-Nets, whose inputs are cast to it.  The cost passes are fp32
+  (their entries upcast bf16 features), the depth heads fp32, parameters
+  and batch-norm statistics fp32;
+* ``remat=True`` in train mode recomputes in the backward the feature net,
+  each cost U-Net and each cost pass but the adaptive one
+  (``blocks.checkpoint``; running statistics are updated once per step),
+  as the JAX package's ``nn.remat`` / ``jax.checkpoint`` do.
 
 Public layouts are the JAX package's: imgs (B, V, H, W, 3) with view 0 the
 reference; proj_matrices {"stage1".."stage3": (B, V, 2, 4, 4)};
@@ -42,8 +58,8 @@ from torch import nn
 
 from dmvsnet_tpu_torch.core import sampling
 from dmvsnet_tpu_torch.models import depth_net
-from dmvsnet_tpu_torch.models.blocks import sync_batch_norm
-from dmvsnet_tpu_torch.models.cost_reg import CostRegNet, CostRegNetRefine
+from dmvsnet_tpu_torch.models.blocks import checkpoint, sync_batch_norm
+from dmvsnet_tpu_torch.models.cost_reg import AggWeightNetVolume, CostRegNet, CostRegNetRefine
 from dmvsnet_tpu_torch.models.feature_net import FeatureNet
 from dmvsnet_tpu_torch.ops import epipolar_sweep, warp_correlate
 from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_VIEW
@@ -72,11 +88,18 @@ class MVSNet(nn.Module):
         epipolar_main_stages: Sequence[int] | None = None,
         epipolar_refine_stages: Sequence[int] | None = None,
         mesh=None,
+        agg_mode: str = "variance",
+        dtype: torch.dtype = torch.float32,
+        feature_dtype: torch.dtype | None = None,
+        costreg_dtype: torch.dtype | None = None,
+        remat: bool = False,
     ):
         super().__init__()
         if warp_impl not in ("cuda", "epipolar", "torch"):
             raise ValueError(
                 f"warp_impl must be 'cuda', 'epipolar' or 'torch', got {warp_impl!r}")
+        if agg_mode not in ("variance", "adaptive"):
+            raise ValueError(f"agg_mode must be 'variance' or 'adaptive', got {agg_mode!r}")
         self.epipolar_main_stages = tuple(
             EPIPOLAR_MAIN_STAGES if epipolar_main_stages is None else epipolar_main_stages)
         self.epipolar_refine_stages = tuple(
@@ -85,11 +108,21 @@ class MVSNet(nn.Module):
         self.depth_interval_ratio = tuple(depth_interval_ratio)
         self.inverse_depth = inverse_depth
         self.warp_impl = warp_impl
-        self.feature = FeatureNet(base_channels)
+        self.agg_mode = agg_mode
+        self.remat = remat
+        self.compute_dtype = dtype
+        feature_dtype = dtype if feature_dtype is None else feature_dtype
+        self.costreg_dtype = dtype if costreg_dtype is None else costreg_dtype
+        self.feature = FeatureNet(base_channels, feature_dtype)
         self.cost_regularization = nn.ModuleList(
-            [CostRegNet(c) for c in cr_base_channels])
+            [CostRegNet(c, self.costreg_dtype) for c in cr_base_channels])
         self.cost_regularization_refine = nn.ModuleList(
-            [CostRegNetRefine(c) for c in cr_base_channels])
+            [CostRegNetRefine(c, self.costreg_dtype) for c in cr_base_channels])
+        if agg_mode == "adaptive":
+            self.agg_weight = nn.ModuleList(
+                [AggWeightNetVolume(dtype=dtype) for _ in cr_base_channels])
+            self.agg_weight_refine = nn.ModuleList(
+                [AggWeightNetVolume(dtype=dtype) for _ in cr_base_channels])
         self.mesh = mesh
         if mesh is not None:
             sync_batch_norm(self, mesh.group(AXIS_DATA))
@@ -120,10 +153,11 @@ class MVSNet(nn.Module):
         depth_interval = (depth_values[0, -1] - depth_values[0, 0]) / depth_values.shape[1]
 
         x = imgs.float().reshape(b * v, h, w, imgs.shape[-1]).permute(0, 3, 1, 2)
-        feats = self.feature(x.contiguous())
-        # channels-last (B, V, h, w, C): each bilinear tap of the cost pass
-        # reads C contiguous floats
-        feats = {k: f.reshape(b, v, *f.shape[1:]).permute(0, 1, 3, 4, 2).contiguous()
+        feats = self._remat(self.feature, x.contiguous())
+        # channels-last (B, V, h, w, C) in the compute dtype: each bilinear
+        # tap of the cost pass reads C contiguous values
+        feats = {k: f.reshape(b, v, *f.shape[1:]).permute(0, 1, 3, 4, 2).to(
+                     self.compute_dtype, memory_format=torch.contiguous_format)
                  for k, f in feats.items()}
 
         outputs: dict[str, Any] = {}
@@ -146,31 +180,40 @@ class MVSNet(nn.Module):
                     inverse=self.inverse_depth)
                 samples = sampling.upsample_depth_samples(samples, sh, sw)
 
-            def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module, sweep_stages):
+            def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module, sweep_stages,
+                          weight_net: nn.Module | None):
                 engaged = None
-                if vp > 1 and (v - 1) % vp == 0:
-                    cost = warp_correlate.aggregate_cost_volume_view_sharded(
-                        feats[key], proj2, dv, self.mesh, impl)
+                if self.agg_mode == "adaptive":
+                    cost = warp_correlate.aggregate_cost_volume_adaptive(
+                        feats[key], proj2, dv, lambda sim: self._gate(weight_net, sim), impl)
+                elif vp > 1 and (v - 1) % vp == 0:
+                    cost = self._remat(warp_correlate.aggregate_cost_volume_view_sharded,
+                                       feats[key], proj2, dv, self.mesh, impl)
                 elif self.warp_impl == "epipolar" and not self.training and s in sweep_stages:
                     cost, engaged = epipolar_sweep.aggregate_cost_volume_epipolar(
                         feats[key], proj2, dv)
                 else:
-                    cost = warp_correlate.aggregate_cost_volume(feats[key], proj2, dv, impl)
+                    cost = self._remat(warp_correlate.aggregate_cost_volume,
+                                       feats[key], proj2, dv, impl)
                 if self.warp_impl == "epipolar" and engaged is None:
                     engaged = torch.zeros((b, v - 1), dtype=torch.bool)
-                out = reg(cost.permute(0, 4, 1, 2, 3).contiguous())  # (B, 4, D, h, w)
-                return out.permute(0, 2, 3, 4, 1), engaged           # (B, D, h, w, 4)
+                x = cost.to(self.costreg_dtype).permute(0, 4, 1, 2, 3).contiguous()
+                out = self._remat(reg, x)                           # (B, 4, D, h, w)
+                return out.permute(0, 2, 3, 4, 1), engaged          # (B, D, h, w, 4)
 
+            adaptive = self.agg_mode == "adaptive"
             # pass 1: full-plane sweep
             cost_reg, engaged = cost_pass(stage, samples, self.cost_regularization[s],
-                                          self.epipolar_main_stages)
+                                          self.epipolar_main_stages,
+                                          self.agg_weight[s] if adaptive else None)
             stage_out = depth_net.forward(cost_reg, samples, interval)
 
             # pass 2: 4-plane checkerboard refine on the "_c" features
             dv_c = stage_out["depth_values_c"]
             cost_reg_c, engaged_c = cost_pass(stage + "_c", dv_c,
                                               self.cost_regularization_refine[s],
-                                              self.epipolar_refine_stages)
+                                              self.epipolar_refine_stages,
+                                              self.agg_weight_refine[s] if adaptive else None)
             refine_out = depth_net.refine(cost_reg_c, dv_c, interval)
             if engaged is not None:
                 refine_out["sweep_engaged"] = engaged
@@ -183,3 +226,17 @@ class MVSNet(nn.Module):
             outputs[stage] = stage_out
             outputs.update(stage_out)
         return outputs
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward under remat in train mode.
+        ``fn`` must read nothing but ``args`` and what stays fixed through
+        the forward: the recompute runs after the stage loop has moved on."""
+        if self.remat and self.training:
+            return checkpoint(fn, *args)
+        return fn(*args)
+
+    def _gate(self, weight_net: nn.Module, sim: torch.Tensor) -> torch.Tensor:
+        """The weight net's logits for one view's (B, D, H, W, 2) correlation,
+        fed in the compute dtype: (B, D, H, W, 1)."""
+        x = sim.to(self.compute_dtype).permute(0, 4, 1, 2, 3).contiguous()
+        return weight_net(x).permute(0, 2, 3, 4, 1)

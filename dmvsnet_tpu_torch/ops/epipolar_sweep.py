@@ -334,7 +334,9 @@ def aggregate_cost_volume_epipolar(
     view).  Eval-time only: raises if an input requires a gradient.
 
     Args:
-      feats: (B, V, H, W, C) channels-last features, view 0 = reference.
+      feats: (B, V, H, W, C) channels-last features, view 0 = reference;
+        bf16 features are upcast to fp32 first, as the JAX package's entry
+        does (its kernels are fp32 end to end).
       proj2: (B, V, 2, 4, 4) stacked cameras.
       depth_values: (B, D) or (B, D, H, W).
 

@@ -131,3 +131,27 @@ def aggregate_cost_volume(
         corr = group_correlation(warped, ref_feat, groups).float()
         similarity = corr if similarity is None else similarity + corr
     return similarity
+
+
+def aggregate_cost_volume_adaptive(
+    features: list[torch.Tensor],
+    proj2: torch.Tensor,
+    depth_values: torch.Tensor,
+    weight_fn,
+    groups: int = 2,
+) -> torch.Tensor:
+    """The "adaptive" cost volume: each source view's fp32 group
+    correlation times a learned per-voxel gate, sigmoid(weight_fn(corr)),
+    summed over the source views in order.
+
+    Args: as ``aggregate_cost_volume``, plus ``weight_fn``: (B, D, H, W,
+    groups) -> (B, D, H, W, 1) logits.
+    """
+    ref_feat = features[0]
+    similarity = None
+    for v, src_feat in enumerate(features[1:], start=1):
+        warped = warp_src_feature(src_feat, proj2[:, v], proj2[:, 0], depth_values)
+        corr = group_correlation(warped, ref_feat, groups).float()
+        corr = corr * torch.sigmoid(weight_fn(corr).float())
+        similarity = corr if similarity is None else similarity + corr
+    return similarity

@@ -29,6 +29,13 @@ The kernels are declared here and built at first use by
 
 The wrappers take the plain versions only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises.
+
+The kernels are fp32 end to end.  The cost-pass entries
+(``aggregate_cost_volume``, its view-sharded and adaptive forms) upcast
+bf16 features to fp32 before the kernel, as the JAX package's Pallas
+entries do (``dmvsnet_tpu/ops/pallas/warp_correlate.py``,
+``aggregate_cost_volume_pallas``): the cost volume is fp32, and autograd
+returns the feature gradient through the upcast in the caller's dtype.
 """
 
 from __future__ import annotations
@@ -275,12 +282,46 @@ def aggregate_cost_volume(
       (B, D, H, W, 2) fp32.  Differentiable w.r.t. ``feats`` only.
     """
     fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
+    return fn(*_pass_inputs(feats, proj2, depth_values))
+
+
+def _pass_inputs(feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor):
+    """fp32 contiguous features (upcast from bf16), relative projections,
+    (B, D, H, W) hypotheses."""
     b, _, h, w, _ = feats.shape
     dv = depth_values.float()
     if dv.dim() == 2:
         dv = dv[:, :, None, None].expand(b, dv.shape[1], h, w)
-    return fn(feats.float().contiguous(), geometry.relative_projections(proj2),
-              dv.contiguous())
+    return (feats.float().contiguous(), geometry.relative_projections(proj2),
+            dv.contiguous())
+
+
+def aggregate_cost_volume_adaptive(
+    feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, weight_fn,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """The adaptive cost pass (port of
+    ``dmvsnet_tpu.ops.warp.aggregate_cost_volume_adaptive``): per source
+    view v, kernel 1 on the (reference, source v) pair (a launch with V = 2;
+    its backward the two adjoint kernels on that pair), gated by
+    ``sigmoid(weight_fn(corr))`` and summed in view order.  ``impl="torch"``,
+    or CPU tensors, take the plain version per pair.
+
+    Args: as ``aggregate_cost_volume``, plus ``weight_fn``: (B, D, H, W, 2)
+    fp32 -> (B, D, H, W, 1) logits.
+
+    Returns:
+      (B, D, H, W, 2) fp32.  Differentiable w.r.t. ``feats`` and whatever
+      ``weight_fn`` holds.
+    """
+    fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
+    feats, rel, dv = _pass_inputs(feats, proj2, depth_values)
+    total = None
+    for i in range(1, feats.shape[1]):
+        corr = fn(feats[:, [0, i]], rel[:, i - 1:i].contiguous(), dv)
+        corr = corr * torch.sigmoid(weight_fn(corr).float())
+        total = corr if total is None else total + corr
+    return total
 
 
 def aggregate_cost_volume_view_sharded(

@@ -133,24 +133,29 @@ def test_unported_options_raise(scene):
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="warp_impl"):
         build_model(_cfg(scene, warp_impl="pallas"), cpu)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        build_model(_cfg(scene, agg_mode="adaptive"), cpu)
-    with pytest.raises(NotImplementedError, match="fp32"):
-        build_model(_cfg(scene, costreg_dtype="bfloat16"), cpu)
+    # ported in the eighth slice: adaptive aggregation and the bf16 policies
+    # build (the cost passes on the CPU take the plain version)
+    adaptive = build_model(_cfg(scene, agg_mode="adaptive"), cpu)
+    assert adaptive.agg_mode == "adaptive" and adaptive.warp_impl == "torch"
+    bf16 = build_model(_cfg(scene, costreg_dtype="bfloat16"), cpu)
+    assert bf16.costreg_dtype == torch.bfloat16 and bf16.compute_dtype == torch.float32
+    with pytest.raises(ValueError, match="costreg_dtype"):
+        build_model(_cfg(scene, costreg_dtype="float16"), cpu)
+    with pytest.raises(NotImplementedError, match="fea_mode"):
+        build_model(_cfg(scene, fea_mode="unet"), cpu)
     with pytest.raises(ValueError, match="CUDA device"):
         build_model(_cfg(scene, warp_impl="cuda"), cpu)
     with pytest.raises(NotImplementedError, match="gipuma"):
         run_test(_cfg(scene).replace(filter_method="gipuma"), device="cpu")
     assert not os.path.exists(scene / "out")
     assert build_model(_cfg(scene), cpu).warp_impl == "torch"
-    # training options that wait for later slices
+    # training: remat, bf16 and adaptive build; sp waits for a later slice
     train_cfg = preset("dtu_train", datapath=str(scene / "data"))
-    with pytest.raises(NotImplementedError, match="remat"):
-        build_train_model(train_cfg.replace(remat=True), cpu)
-    with pytest.raises(NotImplementedError, match="fp32 only"):
-        build_train_model(train_cfg.replace(compute_dtype="bfloat16"), cpu)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        build_train_model(train_cfg.replace(agg_mode="adaptive"), cpu)
+    assert build_train_model(train_cfg.replace(remat=True), cpu).remat
+    assert build_train_model(train_cfg.replace(compute_dtype="bfloat16"),
+                             cpu).compute_dtype == torch.bfloat16
+    assert build_train_model(train_cfg.replace(agg_mode="adaptive"),
+                             cpu).agg_mode == "adaptive"
     with pytest.raises(NotImplementedError, match="sp, the spatial axis"):
         Trainer(train_cfg.replace(mesh_spatial=2), device="cpu")
     model = build_train_model(train_cfg, cpu)

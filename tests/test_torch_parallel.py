@@ -124,11 +124,22 @@ def _view_task(inputs: dict, rank: int, world: int) -> dict:
 
 def _step_task(inputs: dict, rank: int, world: int) -> dict:
     """One train step of the port on a dp or vp mesh: the model in DDP, the
-    step of engine/steps.py, learning rate 0 (the gradients stay in .grad)."""
+    step of engine/steps.py, learning rate 0 (the gradients stay in .grad).
+    With ``inputs["remat"]`` the step runs under deterministic algorithms,
+    and the same step with remat follows under "remat" (its recomputed
+    synced batch norms all_reduce again inside the backward)."""
+    if not inputs.get("remat"):
+        return _one_step(inputs, rank, world, remat=False)
+    torch.use_deterministic_algorithms(True)
+    return dict(_one_step(inputs, rank, world, remat=False),
+                remat=_one_step(inputs, rank, world, remat=True))
+
+
+def _one_step(inputs: dict, rank: int, world: int, remat: bool) -> dict:
     mode = inputs["mode"]
     mesh = make_mesh(n_data=world) if mode == "dp" else make_mesh(n_data=1, n_view=world)
     model = MVSNet(ndepths=inputs["ndepths"], depth_interval_ratio=inputs["ratios"],
-                   inverse_depth=True, warp_impl="cuda", mesh=mesh)
+                   inverse_depth=True, warp_impl="cuda", mesh=mesh, remat=remat)
     model.load_state_dict(inputs["sd0"])
     batch = inputs["batch"]
     if mode == "dp":  # rank d holds element d of the global batch

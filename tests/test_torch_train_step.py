@@ -104,7 +104,7 @@ def step_results(tmp_path_factory):
     for mode in ("dp", "vp"):
         d = tmp_path_factory.mktemp(mode)
         torch.save(dict(mode=mode, sd0=sd0, batch=move(batch), ndepths=NDEPTHS, ratios=RATIOS,
-                        dlossw=DLOSSW), d / "inputs.pt")
+                        dlossw=DLOSSW, remat=mode == "dp"), d / "inputs.pt")
         runs[mode] = run_ranks("step", 2, d)
 
     params, stats = jax_tree_from_state_dict(sd0)
@@ -227,3 +227,18 @@ def test_eval_step_after_train_step_uses_running_stats(step_results):
     before = {k: v.clone() for k, v in r["model"].state_dict().items()}
     make_eval_step(DLOSSW)(r["model"], r["tbatch"])
     assert all(torch.equal(v, before[k]) for k, v in r["model"].state_dict().items())
+
+
+def test_two_rank_remat_step_equals_step(step_results):
+    """The dp step with remat on both ranks equals the dp step without it
+    bit for bit (both under deterministic algorithms; tests/test_torch_remat.py
+    holds the one-process steps): the recomputed synced batch norms
+    all_reduce again in the backward, in the same order on both ranks, and
+    update no running statistic."""
+    for r in step_results["ranks"]["dp"]:
+        on = r["remat"]
+        assert on["scalars"] == r["scalars"] and torch.equal(on["depth"], r["depth"])
+        for n, g in r["grads"].items():
+            assert torch.equal(g, on["grads"][n]), n
+        for k, v in r["state"].items():
+            assert torch.equal(v, on["state"][k]), k

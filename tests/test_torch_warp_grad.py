@@ -9,8 +9,10 @@ Tolerance: 5e-4 absolute on gradients of unit-variance features and
 cotangents, as tests/test_pallas_warp.py uses for the Pallas VJP (band
 matmuls reassociate); the XLA path agrees to 1e-5.  The sampling grid
 carries no gradient: depth hypotheses and projections get None.  The CUDA
-kernels are held against the plain version on the card by the test marked
-``cuda`` and by chip_smoke.py.
+kernels are held against the plain version on the card by the tests marked
+``cuda`` and by chip_smoke.py, among them on bf16 features upcast to fp32
+(the bf16 policies' cost passes) and per source view (the adaptive cost
+pass: kernel 1 and both adjoints on each (reference, source) pair).
 """
 
 import jax
@@ -272,3 +274,77 @@ def test_scatter_counters_are_checked(rng):
         twc.warp_correlate_grad_src(f, rel, depth, ct, stats=torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError, match="stats must be"):
         twc.warp_correlate_grad_src(f, rel, depth, ct, stats=torch.zeros(2))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_on_bf16_upcast_features_on_card(rng):
+    """Kernels 1-3 on bf16 features upcast to fp32 (what the cost pass's
+    entry hands them) against their plain versions on the card, tolerance
+    1e-4 * max(1, max|plain|); through the entry itself the cost volume is
+    fp32 and the feature gradient bf16 and finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
+    dev = torch.device("cuda")
+    b, v, h, w, d = 2, 5, 40, 56, 6
+    proj2 = torch.from_numpy(np.stack([tsyn.camera_set("orbit", v, h, w)] * b)
+                             .astype(np.float32)).to(dev)
+    rel = tgeo.relative_projections(proj2)
+    for c in twc.CHANNELS:
+        feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32))
+        feats = feats.to(dev).to(torch.bfloat16)
+        depth = torch.from_numpy(rng.uniform(400, 900, (b, d, h, w)).astype(np.float32)).to(dev)
+        cot = torch.from_numpy(rng.normal(size=(b, d, h, w, 2)).astype(np.float32)).to(dev)
+        up = feats.float()
+        got = twc.warp_correlate(up, rel, depth)
+        want = twc.warp_correlate_plain(up, rel, depth)
+        assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item()), c
+        grad = twc.warp_correlate_grad(up, rel, depth, cot)
+        want_grad = twc.warp_correlate_grad_plain(up, rel, depth, cot)
+        tol = 1e-4 * max(1.0, want_grad.abs().max().item())
+        assert (grad - want_grad).abs().max().item() <= tol, c
+        f = feats.clone().requires_grad_()
+        cost = twc.aggregate_cost_volume(f, proj2, depth)
+        assert cost.dtype == torch.float32
+        (cost * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert f.grad.dtype == torch.bfloat16 and bool(torch.isfinite(f.grad.float()).all()), c
+
+
+@pytest.mark.cuda
+def test_cuda_per_view_kernel_on_card(rng):
+    """The adaptive cost pass on the card: kernel 1 once per source view on
+    the (reference, source) pair and, in the backward, kernels 2 and 3 once
+    per view, against the plain version per pair; value and feature
+    gradient within 1e-4 * max(1, max|plain|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the CPU suite checks the plain version")
+    from dmvsnet_tpu_torch.models.blocks import init_weights
+    from dmvsnet_tpu_torch.models.cost_reg import AggWeightNetVolume
+
+    dev = torch.device("cuda")
+    b, v, h, w, d = 2, 5, 40, 56, 6
+    proj2 = torch.from_numpy(np.stack([tsyn.camera_set("orbit", v, h, w)] * b)
+                             .astype(np.float32)).to(dev)
+    net = AggWeightNetVolume()
+    init_weights(net, torch.Generator().manual_seed(0))
+    net = net.to(dev).eval()
+
+    def gate(sim):
+        return net(sim.permute(0, 4, 1, 2, 3).contiguous()).permute(0, 2, 3, 4, 1)
+
+    for c in (8, 16, 32):
+        feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
+        depth = torch.from_numpy(rng.uniform(400, 900, (b, d, h, w)).astype(np.float32)).to(dev)
+        cot = torch.from_numpy(rng.normal(size=(b, d, h, w, 2)).astype(np.float32)).to(dev)
+        out = {}
+        for impl in ("cuda", "torch"):
+            f = feats.clone().requires_grad_()
+            before = dict(twc.LAUNCHES)
+            cost = twc.aggregate_cost_volume_adaptive(f, proj2, depth, gate, impl)
+            (cost * cot).sum().backward()
+            torch.cuda.synchronize()
+            launched = {k: twc.LAUNCHES[k] - before[k] for k in before}
+            assert launched == dict.fromkeys(before, v - 1 if impl == "cuda" else 0), launched
+            out[impl] = (cost.detach(), f.grad)
+        for got, want in zip(out["cuda"], out["torch"]):
+            assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item()), c
