@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--grad-trials N]
 
 (``--rank-task`` / ``--task-dir`` are for the ranks the script starts
-itself under torchrun in phases 16-18.)
+itself under torchrun in phases 16-18 and 23.)
 
 ``--grad-trials N`` repeats the gradient comparison of phase 6 on N freshly
 seeded sets of weights and prints it, to show its spread; nothing is held
@@ -152,11 +152,26 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    what half an ulp of noise on the plain path's cost volumes does to it,
    since the weight nets' scale-free parameters have gradients that batch
    norm cancels), V-1 launches of kernels 1-3 per pass, ms per step;
-23. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+23. "sp", the spatial mesh axis: gloo ranks sharing the card, each running
+   the cost U-Nets on its band of rows with halo exchanges (``--rank-task
+   sp`` / ``dpsp``).  sp = 2 eval: the dtu_test forward at 864x1152 (batch
+   2, phase 5's scene and weights; bands of 112 + 104 / 216 + 216 / 432 +
+   432 rows) against the one-process forward (depth 0.05 mm, confidence
+   1e-3; mean / p99 / max beside NUMERICS.json "tol"), 6 kernel-1 launches
+   per rank on the whole image, no unsplit pass.  sp = 2 and dp 2 x sp 2
+   (4 ranks) train: the Trainer at dtu_train with --mesh_spatial 2
+   resuming phase 6's checkpoint, one step on its validation batch under
+   deterministic cuDNN, held as in phase 17, the sp ranks of one dp
+   coordinate on the same samples.  The training CLI with --mesh_spatial 2
+   in each of 2 ranks: one step, a validation batch, a checkpoint.  Per-rank
+   peak memory beside one process's, all_reduce calls and bytes per kind
+   (halo, gather, batch norm), launches per rank, ms of the ranks
+   time-sharing the card;
+24. a "phases" line (wall seconds of each phase), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
    inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
    on each recipe path and "recipe_model_ms" on the recipes' tensors;
-   launches on the dp and vp paths and "vp_model_ms"; launches on the
+   launches on the dp, vp and sp paths and "vp_model_ms"; launches on the
    model options' paths and "bf16_eval_model_ms"; the scatter's atomic
    adds), the card line, and the final {"ok": true, "device": {...}} line.
 
@@ -188,7 +203,7 @@ import torch.nn.functional as F
 from PIL import Image
 from torch.nn.parallel import DistributedDataParallel
 
-from dmvsnet_tpu_torch import pin_fp32
+from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.core import epipolar, geometry, sampling
 from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
@@ -207,7 +222,13 @@ from dmvsnet_tpu_torch.models import mvsnet
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
-from dmvsnet_tpu_torch.parallel import init_multihost, make_mesh, replicate_tree, shard_batch
+from dmvsnet_tpu_torch.parallel import (
+    init_multihost,
+    make_mesh,
+    replicate_tree,
+    shard_batch,
+    spatial,
+)
 from dmvsnet_tpu_torch.utils import synthetic
 from dmvsnet_tpu_torch import cli
 
@@ -1812,15 +1833,25 @@ def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
 @contextlib.contextmanager
 def counting_all_reduce():
     """Within the block every ``torch.distributed.all_reduce`` of the port
-    (batch norm, loss counts, metrics, the vp cost sum) is counted: calls
-    and bytes, into the yielded dict.  DDP's gradient all_reduce runs in
+    (batch norm, loss counts, metrics, the vp cost sum, the sp halo
+    exchanges and gathers) is counted: calls and bytes, into the yielded
+    dict, and per kind under "by_label": the ``label`` of the
+    ``parallel.mesh.psum`` that issued it, forward or backward ("halo",
+    "gather", "batch_norm", "view_sum"), "other" for the unlabelled ones
+    (the loss's and the metrics' sums).  DDP's gradient all_reduce runs in
     C++ and is counted apart (its bytes are the parameters')."""
-    seen = {"calls": 0, "bytes": 0}
+    seen = {"calls": 0, "bytes": 0, "by_label": {}}
     saved = dist.all_reduce
 
     def counted(tensor, *args, **kwargs):
+        nbytes = tensor.numel() * tensor.element_size()
+        ctx = sys._getframe(1).f_locals.get("ctx")
+        label = getattr(ctx, "label", None) or "other"
         seen["calls"] += 1
-        seen["bytes"] += tensor.numel() * tensor.element_size()
+        seen["bytes"] += nbytes
+        kind = seen["by_label"].setdefault(label, {"calls": 0, "bytes": 0})
+        kind["calls"] += 1
+        kind["bytes"] += nbytes
         return saved(tensor, *args, **kwargs)
 
     dist.all_reduce = counted
@@ -1849,19 +1880,26 @@ def held_step(net, model, step, optimizer, scheduler, batch) -> dict:
                 stats={k: v.to("cpu", copy=True) for k, v in model.state_dict().items()
                        if ".running_" in k},
                 all_reduce=dict(port_calls=reduced["calls"], port_bytes=reduced["bytes"],
-                                ddp_gradient_bytes=sum(p.numel() * p.element_size()
+                                by_label=reduced["by_label"], ddp_gradient_bytes=sum(p.numel() * p.element_size()
                                                        for p in model.parameters())))
 
 
 def step_ms(net, step, optimizer, scheduler, batch, n: int = 3) -> float:
     """Median host-clock ms of ``n`` synchronised train steps, every rank
-    starting each step together."""
+    starting each step together (``synced_ms``)."""
+    return synced_ms(lambda: step(net, optimizer, scheduler, batch), n)
+
+
+def synced_ms(fn, n: int = 3) -> float:
+    """Median host-clock ms of ``n`` synchronised calls of ``fn``, every
+    rank starting each call together (the ranks' collectives wait on each
+    other, so CUDA events of one rank would not time the call)."""
     times = []
     for _ in range(n):
         dist.barrier()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        step(net, optimizer, scheduler, batch)
+        fn()
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t))
     return statistics.median(times)
@@ -1894,9 +1932,10 @@ def run_ranks(args: list[str], n: int, timeout_s: float = RANKS_TIMEOUT_S) -> st
 
 
 def rank_worker(task: str, task_dir: str) -> None:
-    """A rank of phase 16 ("cli": cli.main under torchrun, nccl) or of
-    phases 17-18 ("gloo": the dp step, the vp forward and the vp step, two
-    ranks on the one card over gloo).  Writes its results to task_dir."""
+    """A rank of phase 16 ("cli": cli.main under torchrun, nccl), of phases
+    17-18 ("gloo": the dp step, the vp forward and the vp step, two ranks on
+    the one card over gloo) or of phase 23 ("sp", "dpsp": ``sp_rank``).
+    Writes its results to task_dir."""
     with open(os.path.join(task_dir, "task.json")) as f:
         spec = json.load(f)
     pin_fp32()
@@ -1909,10 +1948,16 @@ def rank_worker(task: str, task_dir: str) -> None:
             json.dump(out, f)
         dist.destroy_process_group()
         return
-    os.environ["LOCAL_RANK"] = "0"  # both ranks compute on the one card
+    os.environ["LOCAL_RANK"] = "0"  # every rank computes on the one card
     info = init_multihost("cuda", backend="gloo", timeout_s=RANKS_TIMEOUT_S)
     rank = info["process_index"]
     out = dict(init=info, backend=dist.get_backend())
+    if task in ("sp", "dpsp"):
+        out.update(sp_rank(task, spec, task_dir, rank))
+        torch.save(out, os.path.join(task_dir, f"rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+        return
 
     # phase 17: the dp Trainer (one element per rank) resuming phase 6
     t0 = time.perf_counter()
@@ -2107,13 +2152,228 @@ def gloo_ranks(dev, tmp: str, train_argv: list[str], test_argv: list[str],
             torch.load(os.path.join(d, "vp_passes.pt"), weights_only=False))
 
 
+def sp_rank(task: str, spec: dict, task_dir: str, rank: int) -> dict:
+    """A rank of phase 23 on the one card over gloo.  "sp" (2 ranks): the
+    dtu_test forward on phase 5's scene and weights with the rows split over
+    sp = 2; the Trainer at dtu_train with --mesh_spatial 2 resuming phase 6's
+    checkpoint, one step on the whole validation batch; then cli.main with
+    --mesh_spatial 2 for one step, a validation batch and a checkpoint.
+    "dpsp" (4 ranks): the same Trainer step on a 2 dp x 2 sp mesh."""
+    dev = resolve_device()
+    out = {}
+    train_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["train_argv"]))
+    if task == "sp":
+        t0 = time.perf_counter()
+        mesh = make_mesh(n_data=1, n_spatial=2, device=dev)
+        test_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["test_argv"]))
+        model = replicate_tree(build_train_model(test_cfg, dev, mesh).eval())
+        imgs, proj, dv = load_batch(test_cfg, dev)
+
+        def forward():
+            with torch.inference_mode():
+                return model(imgs, proj, dv)
+
+        cuda_build.reset_launches()
+        spatial.stats["unsplit_passes"] = 0
+        torch.cuda.reset_peak_memory_stats()
+        with counting_all_reduce() as reduced:
+            o = forward()
+            torch.cuda.synchronize()
+        out["forward"] = dict(
+            launches=cuda_build.launches(), depth=o["depth"].cpu(),
+            conf=o["photometric_confidence"].cpu(),
+            unsplit_passes=spatial.stats["unsplit_passes"],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            all_reduce=dict(calls=reduced["calls"], bytes=reduced["bytes"],
+                            by_label=reduced["by_label"]))
+        del o
+        out["forward"]["ms_per_forward"] = synced_ms(forward)
+        out["forward"]["seconds"] = time.perf_counter() - t0
+        del model, imgs, proj, dv
+        torch.cuda.empty_cache()
+        meshes = dict(mesh_spatial=2)
+    else:
+        meshes = dict(mesh_data=2, mesh_spatial=2)
+
+    t0 = time.perf_counter()
+    trainer = Trainer(train_cfg.replace(resume=spec["checkpoint"], **meshes,
+                                        log_dir=os.path.join(task_dir, "logs")))
+    want = {"dp": meshes.get("mesh_data", 1), "vp": 1, "sp": 2}
+    if not (isinstance(trainer.net, DistributedDataParallel) and trainer.device == dev
+            and trainer.mesh.shape == want and trainer.model.warp_impl == "cuda"):
+        raise AssertionError(f"{task} trainer: {type(trainer.net)} on {trainer.device}, "
+                             f"mesh {trainer.mesh.shape}, {trainer.model.warp_impl}")
+    host = next(iter(trainer.val_loader))
+    batch = trainer.to_device(host)
+    args = (trainer.net, trainer.train_step, trainer.optimizer, trainer.scheduler, batch)
+    torch.cuda.reset_peak_memory_stats()
+    step = held_step(trainer.net, trainer.model, *args[1:])
+    step["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    step["per_rank_batch"] = int(host["imgs"].shape[0])
+    step["first_view"] = torch.from_numpy(host["imgs"][:, 0])
+    step["ms_per_step"] = step_ms(*args)
+    step["seconds"] = time.perf_counter() - t0
+    out["step"] = step
+    del trainer, batch, args
+    torch.cuda.empty_cache()
+
+    if task == "sp":
+        # the training CLI with --mesh_spatial 2 in this rank (the group
+        # exists, so cli.main's init_multihost leaves it as it is)
+        t0 = time.perf_counter()
+        cuda_build.reset_launches()
+        summary = cli.main([*spec["cli_argv"], "--mesh_spatial", "2"])
+        out["cli"] = dict(launches=cuda_build.launches(), step=summary["step"],
+                          history=summary["history"], seconds=time.perf_counter() - t0)
+    return out
+
+
+def sp_phase(dev, tmp: str, train_argv: list[str], test_argv: list[str], cli_argv: list[str],
+             checkpoint: str, yardstick: dict, one_process_ms: float) -> dict:
+    """Phase 23, "sp": ranks on the one card over gloo, each running the
+    cost U-Nets on its band of rows, held against one process on the same
+    inputs.  sp = 2 eval: the dtu_test forward at 864x1152 (batch 2, phase
+    5's weights) against the one-process forward (depth 0.05 mm, confidence
+    1e-3; mean / p99 / max printed beside NUMERICS.json "tol"), 6 kernel-1
+    launches per rank on the whole image, no unsplit pass.  sp = 2 and
+    dp 2 x sp 2 train: one dtu_train step from phase 6's checkpoint on its
+    validation batch under deterministic cuDNN against the one-process step
+    (LOSS_RTOL, PATH_GRAD_RTOL beside phase 6's yardstick, STAT_RTOL),
+    scalars and gradients identical on every rank, 6 + 6 + 6 launches per
+    rank, the sp ranks of a dp coordinate on the same samples.  The CLI:
+    one step with --mesh_spatial 2 in each of the 2 ranks.  Per-rank peaks
+    beside the one-process peaks; all_reduce calls and bytes per kind; ms
+    of ranks time-sharing the card."""
+    t_total = time.perf_counter()
+    # one-process peaks above what this process held before (a rank starts
+    # with nothing on the card)
+    held_before = torch.cuda.memory_allocated()
+    train_cfg = cli.config_from_args(cli.build_parser().parse_args(train_argv))
+    ref_trainer = Trainer(train_cfg.replace(resume=checkpoint))
+    batch = ref_trainer.to_device(next(iter(ref_trainer.val_loader)))
+    torch.cuda.reset_peak_memory_stats()
+    ref = held_step(ref_trainer.net, ref_trainer.model, ref_trainer.train_step,
+                    ref_trainer.optimizer, ref_trainer.scheduler, batch)
+    ref_train_peak = (torch.cuda.max_memory_allocated() - held_before) / 1e9
+    del ref_trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    test_cfg = cli.config_from_args(cli.build_parser().parse_args(test_argv))
+    held_before_eval = torch.cuda.memory_allocated()
+    model = build_model(test_cfg, dev)
+    imgs, proj, dv = load_batch(test_cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        o = model(imgs, proj, dv)
+    torch.cuda.synchronize()
+    ref_eval_peak = (torch.cuda.max_memory_allocated() - held_before_eval) / 1e9
+    ref_depth, ref_conf = o["depth"].cpu(), o["photometric_confidence"].cpu()
+    del model, imgs, proj, dv, o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for task, n in (("sp", 2), ("dpsp", 4)):
+        d = os.path.join(tmp, f"sp_{task}")
+        os.makedirs(d)
+        with open(os.path.join(d, "task.json"), "w") as f:
+            json.dump(dict(train_argv=train_argv, test_argv=test_argv, cli_argv=cli_argv,
+                           checkpoint=checkpoint), f)
+        before = host_and_card()
+        t0 = time.perf_counter()
+        run_ranks(["chip_smoke.py", "--rank-task", task, "--task-dir", d], n)
+        runs[task] = dict(ranks=[torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                                 for r in range(n)],
+                          seconds=time.perf_counter() - t0, before=before)
+    per_step = dict(warp_correlate=6, warp_correlate_grad_ref=6, warp_correlate_grad_src=6)
+
+    def held(task: str) -> dict:
+        ranks = [r["step"] for r in runs[task]["ranks"]]
+        r0 = ranks[0]
+        for i, r in enumerate(ranks):
+            expect_launches(f"{task} step rank {i}", r["launches"], **per_step)
+        loss = abs(r0["scalars"]["loss"] - ref["scalars"]["loss"]) / abs(ref["scalars"]["loss"])
+        grads = grad_diff(r0["grads"], ref["grads"])
+        stats = max(float((r["stats"][k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                    for r in ranks for k, v in ref["stats"].items())
+        same = all(r["scalars"] == r0["scalars"] and all(
+            torch.equal(g, r["grads"][n]) for n, g in r0["grads"].items()) for r in ranks)
+        # the sp ranks of one dp coordinate load the same samples; rank =
+        # d * sp + s here
+        same_samples = all(torch.equal(r["first_view"], ranks[i - i % 2]["first_view"])
+                           for i, r in enumerate(ranks))
+        row = dict(loss=r0["scalars"]["loss"], loss_one_process=ref["scalars"]["loss"],
+                   loss_rel_diff=loss, grad_rel_l2_diff=grads,
+                   grad_rel_l2_diff_yardstick_phase_6=yardstick, stats_rel_diff=stats,
+                   scalars_and_grads_identical_on_ranks=same,
+                   sp_ranks_load_the_same_samples=same_samples,
+                   per_rank_batch=[r["per_rank_batch"] for r in ranks],
+                   launches_per_rank=[r["launches"] for r in ranks],
+                   all_reduce_per_step_rank0=r0["all_reduce"],
+                   peak_mem_gb_per_rank=[r["peak_mem_gb"] for r in ranks],
+                   peak_mem_gb_one_process=ref_train_peak,
+                   ms_per_step_ranks_sharing_one_card_over_gloo=[r["ms_per_step"] for r in ranks],
+                   ms_per_step_one_process_phase_6=one_process_ms,
+                   ranks_run_s=runs[task]["seconds"], before=runs[task]["before"])
+        if not (np.isfinite(r0["scalars"]["loss"]) and loss <= LOSS_RTOL and same
+                and same_samples and stats <= STAT_RTOL
+                and all(grads[k] <= tol for k, tol in PATH_GRAD_RTOL.items())):
+            raise AssertionError(f"{task} step against one process: {row}")
+        return row
+
+    fwd = [r["forward"] for r in runs["sp"]["ranks"]]
+    diffs = [(f["depth"] - ref_depth).abs() for f in fwd]
+    depth = dict(max_mm=max(float(x.max()) for x in diffs),
+                 mean_mm=max(float(x.mean()) for x in diffs),
+                 p99_mm=max(float(torch.quantile(x.flatten()[::7], 0.99)) for x in diffs))
+    c_err = max(float((f["conf"] - ref_conf).abs().max()) for f in fwd)
+    for i, f in enumerate(fwd):
+        expect_launches(f"sp forward rank {i}", f["launches"], warp_correlate=6)
+    bands = {f"stage{s + 1}": [b - a for a, b in spatial.row_bands(H // 2 ** (2 - s), 2)]
+             for s in range(3)}
+    forward = dict(bands_rows=bands, depth_diff_from_one_process=depth,
+                   numerics_tol=dict(mean_mm=0.2, p99_mm=2.0, max_mm=10.0),
+                   conf_max_abs_diff=c_err, unsplit_passes=[f["unsplit_passes"] for f in fwd],
+                   launches_per_rank=[f["launches"] for f in fwd],
+                   all_reduce_rank0=fwd[0]["all_reduce"],
+                   peak_mem_gb_per_rank=[f["peak_mem_gb"] for f in fwd],
+                   peak_mem_gb_one_process=ref_eval_peak,
+                   ms_per_forward_2_ranks_sharing_one_card_over_gloo=[
+                       f["ms_per_forward"] for f in fwd],
+                   seconds=fwd[0]["seconds"])
+    if not (depth["max_mm"] <= 0.05 and c_err <= 1e-3
+            and all(f["unsplit_passes"] == 0 for f in fwd)):
+        raise AssertionError(f"sp forward against one process: {forward}")
+
+    clis = [r["cli"] for r in runs["sp"]["ranks"]]
+    for i, c in enumerate(clis):
+        # one step and one validation batch
+        expect_launches(f"sp cli rank {i}", c["launches"], warp_correlate=12,
+                        warp_correlate_grad_ref=6, warp_correlate_grad_src=6)
+    epoch = clis[0]["history"][0]
+    if not (all(c["step"] == 1 for c in clis) and all(
+            np.isfinite(v) for v in (*epoch["train_avg"].values(), *epoch["val_avg"].values()))
+            and clis[1]["history"][0]["train_avg"] == epoch["train_avg"]
+            and os.path.exists(epoch["checkpoint"])):
+        raise AssertionError(f"sp cli: {clis}")
+    return dict(init=[r["init"] for r in runs["dpsp"]["ranks"]],
+                backend=runs["sp"]["ranks"][0]["backend"],
+                gb_held_by_this_process_before=[held_before / 1e9, held_before_eval / 1e9],
+                forward=forward,
+                step_sp2=held("sp"), step_dp2_sp2=held("dpsp"),
+                cli=dict(launches_per_rank=[c["launches"] for c in clis], steps=clis[0]["step"],
+                         train_avg=epoch["train_avg"], val_avg=epoch["val_avg"],
+                         seconds=clis[0]["seconds"]),
+                seconds=time.perf_counter() - t_total)
+
+
 def report(every: list[dict], eval_launches, train_launches, epi_launches,
            fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict],
            options: dict[str, dict]) -> None:
     """The "kernels" line, from the rows of the five kernels on synthetic
     and model inputs; ``recipes`` are the launch counts of each recipe path
     of phases 11-15, each read just after the path ran from counts at 0;
-    ``parallel`` those of phases 16-18 (per rank on the gloo paths);
+    ``parallel`` those of phases 16-18 and 23 (per rank on the gloo paths);
     ``options`` those of the model options' paths, phases 19-22."""
 
     def rows_of(kernel, inputs, cameras="translate"):
@@ -2202,9 +2462,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--grad-trials", type=int, default=0,
                         help="fresh sets of weights to repeat the gradient comparison on")
-    parser.add_argument("--rank-task", choices=["cli", "gloo"],
-                        help="run as a rank of phase 16 or 17-18 (the script starts these "
-                             "itself under torchrun)")
+    parser.add_argument("--rank-task", choices=["cli", "gloo", "sp", "dpsp"],
+                        help="run as a rank of phase 16, 17-18 or 23 (the script starts "
+                             "these itself under torchrun)")
     parser.add_argument("--task-dir", help="where a rank reads its task and writes its results")
     args = parser.parse_args()
     grad_trials = args.grad_trials
@@ -2356,6 +2616,15 @@ def main() -> None:
         print("adaptive " + json.dumps(adaptive), flush=True)
         del inputs
 
+        # the spatial mesh axis: ranks sharing the one card over gloo, each
+        # regularising its band of rows
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp = timed("sp", sp_phase, dev, tmp, train_argv(tmp, "logs_sp"), eval_argv(tmp),
+                   train_argv(tmp, "logs_sp_cli") + ["--max_train_samples", "2"],
+                   train["checkpoint"], yardstick, train["train_step_ms"])
+        print("sp " + json.dumps(sp), flush=True)
+
     print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
           flush=True)
     report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
@@ -2365,7 +2634,11 @@ def main() -> None:
                 blendedmvs=bmvs["launches"]),
            dict(dp_nccl_run=nccl["launches"], dp_gloo_step_rank0=dp["launches_per_rank"][0],
                 vp_forward_rank0=vp["forward"]["launches_per_rank"][0],
-                vp_step_rank0=vp["step"]["launches_per_rank"][0]),
+                vp_step_rank0=vp["step"]["launches_per_rank"][0],
+                sp_forward_rank0=sp["forward"]["launches_per_rank"][0],
+                sp_step_rank0=sp["step_sp2"]["launches_per_rank"][0],
+                dp2_sp2_step_rank0=sp["step_dp2_sp2"]["launches_per_rank"][0],
+                sp_cli_rank0=sp["cli"]["launches_per_rank"][0]),
            dict(bf16_eval_nets=bf16e["nets"]["launches"],
                 bf16_eval_compute=bf16e["compute"]["launches"],
                 bf16_train_step=bf16t["launches"], remat_step=remat["launches"]["remat"],

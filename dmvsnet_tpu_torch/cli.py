@@ -13,7 +13,9 @@ Runs on CUDA unless ``--device cpu`` (``--vis`` needs no device).  The
 flags are those of the JAX package's CLI without its platform flag.  Under
 ``torchrun`` (or the JAX package's COORDINATOR_ADDRESS / NUM_PROCESSES /
 PROCESS_ID) training and ``--val`` run data-parallel over every rank (nccl
-on CUDA, gloo on the CPU; ``--mesh_data`` as in the JAX package);
+on CUDA, gloo on the CPU; ``--mesh_data`` and ``--mesh_spatial`` as in the
+JAX package: ``--mesh_spatial S`` splits the rows of every cost U-Net over
+S ranks);
 ``--test`` runs in one process, as the JAX package's does.
 """
 
@@ -115,7 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_data", type=int, default=None,
                    help="ranks on the data axis (default: all); reduced to divide batch_size")
     p.add_argument("--mesh_spatial", type=int, default=None,
-                   help="ranks on the spatial axis: only 1 is ported")
+                   help="ranks on the spatial axis: each splits the rows of the cost "
+                        "U-Nets (default 1)")
     return p
 
 

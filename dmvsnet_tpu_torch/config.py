@@ -85,8 +85,8 @@ class Config:
     rel_diff_base: float = 1.0 / 1300
 
     # parallelism (training and --val): ranks on the data axis (0 = all of
-    # them), reduced to divide batch_size; the spatial axis is not ported
-    # and raises above 1
+    # them but the spatial axis's), reduced to divide batch_size; ranks on
+    # the spatial axis, which split the rows of every cost U-Net
     mesh_data: int = 0
     mesh_spatial: int = 1
 

@@ -5,13 +5,15 @@ batch, tensorboard scalars/images where tensorboardX is installed, one
 checkpoint per epoch, validation every eval_freq epochs.  Runs on CUDA
 unless the caller asks for the CPU.
 
-The Trainer trains on a dp mesh over every rank of the process group
-(``parallel.init_multihost``; one rank without one), as the JAX Trainer
-trains on its (dp, sp) device mesh: ``cfg.batch_size`` is the global
-batch, each rank loads its 1/world share, batch norm and the loss reduce
-over the global batch, DDP averages the gradients, and the logged scalars
-are global.  Only rank 0 prints progress, writes tensorboard and writes
-the checkpoint.
+The Trainer trains on a (dp, sp) mesh over every rank of the process
+group (``parallel.init_multihost``; one rank without one), as the JAX
+Trainer trains on its (dp, sp) device mesh: ``cfg.mesh_spatial`` ranks
+split the rows of each cost U-Net (models/mvsnet.py), the others form dp.
+``cfg.batch_size`` is the global batch; each dp coordinate loads its
+1/dp share (the sp ranks of one dp coordinate load the same samples),
+batch norm and the loss reduce over the global batch, DDP averages the
+gradients over every rank, and the logged scalars are global.  Only rank 0
+prints progress, writes tensorboard and writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -34,7 +36,13 @@ from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_eval_step, make_train_step
 from dmvsnet_tpu_torch.models import MVSNet
 from dmvsnet_tpu_torch.models.blocks import init_weights
-from dmvsnet_tpu_torch.parallel.mesh import make_mesh, rank_and_world, replicate_tree, shard_batch
+from dmvsnet_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    make_mesh,
+    rank_and_world,
+    replicate_tree,
+    shard_batch,
+)
 
 
 class AverageMeter:
@@ -138,8 +146,6 @@ class Trainer:
             print(f"note: dp mesh axis reduced to {n_data} "
                   f"(batch_size {cfg.batch_size} must divide over it)", flush=True)
         self.mesh = make_mesh(n_data, n_spatial=cfg.mesh_spatial, device=self.device)
-        if cfg.batch_size % world:
-            raise ValueError(f"batch_size {cfg.batch_size} must divide over {world} ranks")
         self.model = build_model(cfg, self.device, self.mesh)
 
         train_scans = resolve_scan_list(cfg.trainlist, cfg.datapath)
@@ -155,12 +161,14 @@ class Trainer:
             self.train_ds.metas = self.train_ds.metas[: cfg.max_train_samples]
         if cfg.max_val_samples:
             self.val_ds.metas = self.val_ds.metas[: cfg.max_val_samples]
-        # cfg.batch_size is the global batch; each rank loads its share
-        shard = dict(num_hosts=world, host_id=self.rank)
+        # cfg.batch_size is the global batch; each dp coordinate loads its
+        # share, and the sp ranks of one dp coordinate load the same samples
+        n_data = self.mesh.size(AXIS_DATA)
+        shard = dict(num_hosts=n_data, host_id=self.mesh.coords[AXIS_DATA])
         self.train_loader = make_loader(
-            self.train_ds, cfg.batch_size // world, "train", seed=cfg.seed, **shard)
+            self.train_ds, cfg.batch_size // n_data, "train", seed=cfg.seed, **shard)
         self.val_loader = make_loader(
-            self.val_ds, cfg.batch_size // world, "val", seed=cfg.seed, **shard)
+            self.val_ds, cfg.batch_size // n_data, "val", seed=cfg.seed, **shard)
 
         steps_per_epoch = max(1, len(self.train_loader))
         self.lr_schedule = make_lr_schedule(

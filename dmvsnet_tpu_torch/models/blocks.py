@@ -24,6 +24,13 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
   ``models/folded.py`` (scale and shift folded in fp32, applied in the
   input dtype); ReLU and the skip sums keep the dtype their operands give,
   as the jnp ops do (bf16 + fp32 is fp32 in both);
+* on the spatial mesh axis (``spatial_split``) a 3x3 convolution inside
+  ``parallel.spatial.split_rows()`` takes its input as this rank's band of
+  rows: it pads the band with the halo rows of its neighbours
+  (``parallel.spatial.halo_exchange``; zeros at the image's edges stand in
+  for the padding on H), convolves without padding on H and returns the
+  band's own output rows (for a transposed convolution, the crop that
+  drops the rows the halo adds);
 * ``checkpoint`` is ``torch.utils.checkpoint`` for the model's remat: a
   batch norm recomputed in the backward updates no running statistic, so
   a step updates them once, as the step without remat does.
@@ -44,7 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
-from dmvsnet_tpu_torch.parallel.mesh import psum
+from dmvsnet_tpu_torch.parallel import spatial
+from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA_SPATIAL, psum
 
 # .active is True while ``checkpoint`` recomputes a forward inside the
 # backward, in the thread that runs that backward
@@ -129,7 +137,8 @@ class _BiasedRunningVar:
                            (x - mean_r.view(shape)).square().sum(dims)])
         k, size = dist.get_rank(self.process_group), dist.get_world_size(self.process_group)
         table = psum(torch.cat([row.new_zeros((k, 3, c)), row[None],
-                                row.new_zeros((size - k - 1, 3, c))]), self.process_group)
+                                row.new_zeros((size - k - 1, 3, c))]), self.process_group,
+                     "batch_norm")
         counts, means, m2 = table[:, 0].detach(), table[:, 1], table[:, 2]
         count = counts.sum(0)
         mean = (counts * means).sum(0) / count
@@ -167,37 +176,96 @@ def sync_batch_norm(module: nn.Module, process_group) -> nn.Module:
     return module
 
 
+def spatial_split(module: nn.Module, mesh) -> nn.Module:
+    """Makes ``module`` (a cost U-Net) run on row bands over ``mesh``'s sp
+    axis: within ``parallel.spatial.split_rows()`` each of its 3x3
+    convolutions exchanges halo rows, and its batch norms take their
+    train-mode statistics over the ``("dp", "sp")`` group, whose ranks hold
+    the bands of the global batch.  Only modules that see bands: the
+    feature net and the adaptive weight nets see whole maps, replicated
+    over sp, and keep the dp group (``sync_batch_norm``)."""
+    for m in module.modules():
+        if isinstance(m, _Cast) and m.kernel_size[-2] == 3:
+            m.spatial = mesh
+        elif isinstance(m, _BiasedRunningVar):
+            m.process_group = mesh.group(AXIS_DATA_SPATIAL)
+    return module
+
+
 class _Cast:
     """A conv that casts its input, weight and bias to ``compute_dtype``
-    (fp32 parameters; the output in that dtype, as flax's ``dtype=``)."""
+    (fp32 parameters; the output in that dtype, as flax's ``dtype=``), and
+    that runs on a row band where ``spatial`` (a ``parallel.Mesh``, set by
+    ``spatial_split``) is set and the rows are split."""
 
     compute_dtype = torch.float32
+    spatial = None
 
     def _cast(self, x):
         dt = self.compute_dtype
         return x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
 
+    def _banded(self) -> bool:
+        return self.spatial is not None and spatial.rows_split()
+
+    def _halo(self, x):
+        """``x`` with one halo row above and below and the padding without
+        its H entry.  A 3x3 conv with padding 1 and stride s then gives the
+        band's own rows: its first output is centred on the band's first row
+        (s = 2: bands start on even rows, so that row is the centre of an
+        output of the whole map)."""
+        padding = list(self.padding)
+        padding[-2] = 0
+        return spatial.halo_exchange(x, self.spatial, x.dim() - 2), tuple(padding)
+
 
 class Conv2d(_Cast, nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*self._cast(x))
+        x, w, b = self._cast(x)
+        if not self._banded():
+            return self._conv_forward(x, w, b)
+        x, padding = self._halo(x)
+        return F.conv2d(x, w, b, self.stride, padding, self.dilation, self.groups)
 
 
 class Conv3d(_Cast, nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(*self._cast(x))
+        x, w, b = self._cast(x)
+        if not self._banded():
+            return self._conv_forward(x, w, b)
+        x, padding = self._halo(x)
+        return F.conv3d(x, w, b, self.stride, padding, self.dilation, self.groups)
 
 
-class ConvTranspose2d(_Cast, nn.ConvTranspose2d):
+class _Transpose(_Cast):
+    """A transposed conv.  On a band of n rows [a, a+n) its output rows are
+    [s*a, s*(a+n)); output row o takes input rows i with o = s*i + t - p,
+    t < k, so (k 3, s 2, p 1) it needs input rows a..a+n: the halo row below.
+    Run on the band with both halo rows and no padding on H, output row o'
+    is global row o = o' + s*(a-1) - p, so the band's rows start at o' = s + p."""
+
+    def _transpose(self, fn, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = self._cast(x)
+        if not self._banded():
+            return fn(x, w, b, self.stride, self.padding, self.output_padding, self.groups,
+                      self.dilation)
+        n = x.shape[-2]
+        x, padding = self._halo(x)
+        output_padding = list(self.output_padding)
+        output_padding[-2] = 0
+        y = fn(x, w, b, self.stride, padding, tuple(output_padding), self.groups, self.dilation)
+        s = self.stride[-2]
+        return y.narrow(-2, s + self.padding[-2], s * n)
+
+
+class ConvTranspose2d(_Transpose, nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(*self._cast(x), self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+        return self._transpose(F.conv_transpose2d, x)
 
 
-class ConvTranspose3d(_Cast, nn.ConvTranspose3d):
+class ConvTranspose3d(_Transpose, nn.ConvTranspose3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose3d(*self._cast(x), self.stride, self.padding,
-                                  self.output_padding, self.groups, self.dilation)
+        return self._transpose(F.conv_transpose3d, x)
 
 
 _CONV = {2: Conv2d, 3: Conv3d}

@@ -26,6 +26,26 @@ package's ``train`` argument does.
   over it (``warp_correlate.aggregate_cost_volume_view_sharded``), ahead of
   the epipolar routing, which vp then never takes, as in the JAX package.
   Without a mesh, or with vp = 1, the forward is the one-process forward;
+* where the mesh's sp axis has more than one rank, every cost pass is
+  computed on the whole image (as the JAX package's Pallas warp is, which
+  GSPMD does not partition), then each sp rank takes its band of rows
+  (``parallel.spatial.row_bands``), runs the cost U-Net on it with halo
+  exchanges (``blocks.spatial_split``; batch norm over the ("dp", "sp")
+  group) and the depth head on it (bands start on multiples of 8 rows, so
+  the heads' row parities are the global ones), and gathers every head
+  output back to the whole image (``parallel.spatial.gather_rows``); from
+  there on each sp rank holds the whole maps, as without sp.  A stage whose
+  height does not divide over sp runs unsplit, as the JAX package's
+  ``constrain`` leaves it.  Gradients: ``gather_rows`` is a psum, so every
+  band receives sp times its cotangent (every sp rank computes the same
+  loss on the same whole maps; losses/ reduce over dp only), and DDP's
+  mean over the dp x sp ranks turns that into the one-process gradient:
+  a U-Net parameter gets the mean over sp of sp * g_band, the sum over the
+  bands, g; the feature net and the weight nets get the same through the
+  band slice of the cost volume, whose backward hands kernels 2-3 a
+  cotangent that is zero outside the band.  This is the vp argument of
+  ``ops/warp_correlate.aggregate_cost_volume_view_sharded`` with rows for
+  source views;
 * ``agg_mode="adaptive"`` gates each source view's correlation by a learned
   per-voxel weight before the view sum (``models/cost_reg.AggWeightNetVolume``,
   one net per stage and pass, called once per source view; kernel 1 on each
@@ -58,11 +78,12 @@ from torch import nn
 
 from dmvsnet_tpu_torch.core import sampling
 from dmvsnet_tpu_torch.models import depth_net
-from dmvsnet_tpu_torch.models.blocks import checkpoint, sync_batch_norm
+from dmvsnet_tpu_torch.models.blocks import checkpoint, spatial_split, sync_batch_norm
 from dmvsnet_tpu_torch.models.cost_reg import AggWeightNetVolume, CostRegNet, CostRegNetRefine
 from dmvsnet_tpu_torch.models.feature_net import FeatureNet
 from dmvsnet_tpu_torch.ops import epipolar_sweep, warp_correlate
-from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_VIEW
+from dmvsnet_tpu_torch.parallel import spatial
+from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_SPATIAL, AXIS_VIEW
 
 # Per-(stage, pass) epipolar routing, consulted only under
 # warp_impl="epipolar": the stage indices whose main / refine cost pass take
@@ -74,6 +95,11 @@ from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_VIEW
 # warp_impl="auto" never takes it.  Change them only from "ab" lines.
 EPIPOLAR_MAIN_STAGES: tuple[int, ...] = (0, 1)
 EPIPOLAR_REFINE_STAGES: tuple[int, ...] = ()
+
+# the H axis of each head output that an sp rank gathers from the bands
+_HEAD_H_AXIS = {"prob_volume": 2, "depth_sub_plus": 1, "depth_values_c": 2,
+                "photometric_confidence": 1, "depth": 1, "photometric_confidence_refine": 1,
+                "depth_sub_plus_refine": 1}
 
 
 class MVSNet(nn.Module):
@@ -126,6 +152,9 @@ class MVSNet(nn.Module):
         self.mesh = mesh
         if mesh is not None:
             sync_batch_norm(self, mesh.group(AXIS_DATA))
+            if mesh.size(AXIS_SPATIAL) > 1:
+                for reg in (*self.cost_regularization, *self.cost_regularization_refine):
+                    spatial_split(reg, mesh)
 
     def forward(
         self,
@@ -179,6 +208,9 @@ class MVSNet(nn.Module):
                     self.depth_interval_ratio[s] * depth_interval,
                     inverse=self.inverse_depth)
                 samples = sampling.upsample_depth_samples(samples, sh, sw)
+            # this sp rank's rows of the stage, or None: the whole image
+            bands = spatial.bands_for(sh, self.mesh, passes=2)
+            band = None if bands is None else bands[self.mesh.coords[AXIS_SPATIAL]]
 
             def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module, sweep_stages,
                           weight_net: nn.Module | None):
@@ -198,15 +230,24 @@ class MVSNet(nn.Module):
                 if self.warp_impl == "epipolar" and engaged is None:
                     engaged = torch.zeros((b, v - 1), dtype=torch.bool)
                 x = cost.to(self.costreg_dtype).permute(0, 4, 1, 2, 3).contiguous()
-                out = self._remat(reg, x)                           # (B, 4, D, h, w)
+                if band is not None:
+                    x = spatial.take_rows(x, 3, band)
+                out = self._remat(self._regularize, reg, x, band is not None)  # (B, 4, D, h, w)
                 return out.permute(0, 2, 3, 4, 1), engaged          # (B, D, h, w, 4)
+
+            def head(fn, cost_reg, dv):
+                if band is None:
+                    return fn(cost_reg, dv, interval)
+                out = fn(cost_reg, spatial.take_rows(dv, 2, band), interval)
+                return {k: spatial.gather_rows(x, self.mesh, _HEAD_H_AXIS[k], bands)
+                        if k in _HEAD_H_AXIS else x for k, x in out.items()}
 
             adaptive = self.agg_mode == "adaptive"
             # pass 1: full-plane sweep
             cost_reg, engaged = cost_pass(stage, samples, self.cost_regularization[s],
                                           self.epipolar_main_stages,
                                           self.agg_weight[s] if adaptive else None)
-            stage_out = depth_net.forward(cost_reg, samples, interval)
+            stage_out = {**head(depth_net.forward, cost_reg, samples), "depth_values": samples}
 
             # pass 2: 4-plane checkerboard refine on the "_c" features
             dv_c = stage_out["depth_values_c"]
@@ -214,7 +255,7 @@ class MVSNet(nn.Module):
                                               self.cost_regularization_refine[s],
                                               self.epipolar_refine_stages,
                                               self.agg_weight_refine[s] if adaptive else None)
-            refine_out = depth_net.refine(cost_reg_c, dv_c, interval)
+            refine_out = head(depth_net.refine, cost_reg_c, dv_c)
             if engaged is not None:
                 refine_out["sweep_engaged"] = engaged
                 refine_out["sweep_engaged_refine"] = engaged_c
@@ -234,6 +275,16 @@ class MVSNet(nn.Module):
         if self.remat and self.training:
             return checkpoint(fn, *args)
         return fn(*args)
+
+    @staticmethod
+    def _regularize(reg: nn.Module, x: torch.Tensor, split: bool) -> torch.Tensor:
+        """``reg(x)``, on this sp rank's band of rows where ``split``.  The
+        flag is an argument, so that remat's recompute in the backward runs
+        on the band too; its halo and batch-norm all_reduces are issued
+        again then, in the same order on every rank, which keeps the
+        collectives matched."""
+        with spatial.split_rows(split):
+            return reg(x)
 
     def _gate(self, weight_net: nn.Module, sim: torch.Tensor) -> torch.Tensor:
         """The weight net's logits for one view's (B, D, H, W, 2) correlation,

@@ -348,4 +348,4 @@ def aggregate_cost_volume_view_sharded(
     k = v1 // vp
     mine = [0, *range(1 + mesh.coords[AXIS_VIEW] * k, 1 + (mesh.coords[AXIS_VIEW] + 1) * k)]
     partial = aggregate_cost_volume(feats[:, mine], proj2[:, mine], depth_values, impl)
-    return mesh.psum(partial, AXIS_VIEW)
+    return mesh.psum(partial, AXIS_VIEW, "view_sum")

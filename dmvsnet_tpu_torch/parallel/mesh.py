@@ -13,7 +13,12 @@ per mesh axis:
 * ``vp``, view parallel: each rank correlates the reference view with its
   share of the source views and one all_reduce over the vp group sums the
   cost volume (ops/warp_correlate.aggregate_cost_volume_view_sharded).
-* ``sp``, spatial parallel: not ported yet.
+* ``sp``, spatial parallel: every rank of an sp group computes each cost
+  volume on the whole image, then regularises its own band of rows; the
+  cost U-Nets exchange one halo row with their neighbours at every 3x3
+  convolution and take their train-mode batch-norm statistics over the
+  ``("dp", "sp")`` group, and the heads' outputs are gathered back to the
+  whole image (parallel/spatial.py, models/mvsnet.py).
 
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used: gloo offers no
 more on CUDA tensors, and gloo is what ranks sharing one card use.
@@ -21,16 +26,20 @@ more on CUDA tensors, and gloo is what ranks sharing one card use.
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 AXIS_DATA = "dp"
 AXIS_VIEW = "vp"
 AXIS_SPATIAL = "sp"
+# the ranks that share a vp coordinate: the banded cost U-Nets' batch norm
+AXIS_DATA_SPATIAL = (AXIS_DATA, AXIS_SPATIAL)
 
 
 def rank_and_world() -> tuple[int, int]:
@@ -56,8 +65,8 @@ class _PSum(torch.autograd.Function):
     divided back."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, label):
+        ctx.group, ctx.label = group, label
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=group)
         return out
@@ -66,13 +75,15 @@ class _PSum(torch.autograd.Function):
     def backward(ctx, cot):
         cot = cot.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(cot, group=ctx.group)
-        return cot, None
+        return cot, None, None
 
 
-def psum(x: torch.Tensor, group) -> torch.Tensor:
+def psum(x: torch.Tensor, group, label: str | None = None) -> torch.Tensor:
     """Differentiable sum of ``x`` over the ranks of ``group`` (``x`` itself
-    for None)."""
-    return x if group is None else _PSum.apply(x, group)
+    for None).  ``label`` names what the sum is for ("halo", "gather",
+    "batch_norm", "view_sum"); it changes nothing, and a caller counting
+    all_reduce calls can read it from the calling frame's ``ctx``."""
+    return x if group is None else _PSum.apply(x, group, label)
 
 
 @dataclass(frozen=True, eq=False)
@@ -86,20 +97,24 @@ class Mesh:
 
     shape: dict[str, int]
     coords: dict[str, int]
-    groups: dict[str, Any]
+    groups: dict[Any, Any]
     device: torch.device
 
-    def size(self, axis: str) -> int:
-        return self.shape[axis]
+    def size(self, axis) -> int:
+        """The size of ``axis``, or the product of the sizes of a tuple of
+        axes (``AXIS_DATA_SPATIAL``)."""
+        return math.prod(self.shape[a] for a in axis) if isinstance(axis, tuple) \
+            else self.shape[axis]
 
-    def group(self, axis: str):
-        """The process group of ``axis``; None where the axis has size 1."""
+    def group(self, axis):
+        """The process group of ``axis`` (or of a tuple of axes); None where
+        it holds one rank."""
         return self.groups.get(axis)
 
-    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def psum(self, x: torch.Tensor, axis, label: str | None = None) -> torch.Tensor:
         """Differentiable sum of ``x`` over ``axis`` (``x`` itself where the
-        axis has size 1)."""
-        return psum(x, self.group(axis))
+        axis has size 1); ``label`` as in ``psum``."""
+        return psum(x, self.group(axis), label)
 
     def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Sum of ``x`` over ``axis``, without a gradient (a new tensor)."""
@@ -114,6 +129,31 @@ class Mesh:
         return self.all_reduce(x, axis) / self.size(axis)
 
 
+def mesh_layout(world: int, n_data: int, n_view: int, n_spatial: int) -> dict:
+    """Where each rank sits on a (dp, vp, sp) grid, as the JAX package lays
+    out devices: ``np.arange(world).reshape(n_data, n_view, n_spatial)``,
+    so rank = (d * n_view + v) * n_spatial + s.
+
+    Returns {"coords": [{"dp", "vp", "sp"} of each rank], "groups": {axis:
+    [rank lists]}}: for each of dp, vp and sp the ranks that differ along
+    that axis alone, and for ``AXIS_DATA_SPATIAL`` the ranks that share a
+    vp coordinate.  Raises ValueError unless the grid holds each rank once.
+    """
+    if min(n_data, n_view, n_spatial) < 1 or n_data * n_view * n_spatial != world:
+        raise ValueError(f"mesh {n_data}x{n_view}x{n_spatial} (dp x vp x sp) must hold "
+                         f"each of the {world} ranks once")
+    grid = np.arange(world).reshape(n_data, n_view, n_spatial)
+    coords = [dict(zip((AXIS_DATA, AXIS_VIEW, AXIS_SPATIAL), map(int, np.argwhere(grid == r)[0])))
+              for r in range(world)]
+    lists = {AXIS_DATA: grid.transpose(1, 2, 0).reshape(-1, n_data),
+             AXIS_VIEW: grid.transpose(0, 2, 1).reshape(-1, n_view),
+             AXIS_SPATIAL: grid.reshape(-1, n_spatial),
+             AXIS_DATA_SPATIAL: grid.transpose(1, 0, 2).reshape(n_view, -1)}
+    return {"coords": coords,
+            "groups": {axis: [[int(r) for r in row] for row in rows]
+                       for axis, rows in lists.items()}}
+
+
 def make_mesh(n_data: int | None = None, n_spatial: int = 1, n_view: int = 1,
               device: str | torch.device = "cpu") -> Mesh:
     """The (dp, vp, sp) mesh over every rank of the process group (one rank,
@@ -122,43 +162,34 @@ def make_mesh(n_data: int | None = None, n_spatial: int = 1, n_view: int = 1,
     Args:
       n_data: size of the data axis; defaults to the ranks left over by the
         other two axes.
-      n_spatial: size of the spatial axis; only 1 is ported.
+      n_spatial: size of the spatial axis (the rows of each cost U-Net are
+        split over it).
       n_view: size of the source-view axis (the cost volume's sum over the
         V-1 source views is sharded over it).
       device: the device this rank computes on.
 
-    Ranks are laid out as the JAX package lays out devices: rank =
-    (d * n_view + v) * n_spatial + s.  Every rank must hold one place:
-    raises ValueError unless n_data * n_view * n_spatial is the world size.
+    Ranks are laid out as ``mesh_layout`` says.  Every rank must hold one
+    place: raises ValueError unless n_data * n_view * n_spatial is the
+    world size.  Each axis of more than one rank gets a process group, and
+    so does ``AXIS_DATA_SPATIAL``; axes with the same ranks share one.
     """
-    if n_spatial > 1:
-        raise NotImplementedError(
-            f"n_spatial={n_spatial}: the spatial mesh axis is not ported yet "
-            "(ROADMAP.md, open items §1: sp, the spatial axis)")
     rank, world = rank_and_world()
     if n_data is None:
         n_data = world // (n_spatial * n_view)
+    layout = mesh_layout(world, n_data, n_view, n_spatial)
     shape = {AXIS_DATA: n_data, AXIS_VIEW: n_view, AXIS_SPATIAL: n_spatial}
-    if n_data < 1 or n_data * n_view * n_spatial != world:
-        raise ValueError(f"mesh {n_data}x{n_view}x{n_spatial} (dp x vp x sp) must hold "
-                         f"each of the {world} ranks once")
-    coords = {AXIS_DATA: rank // (n_view * n_spatial),
-              AXIS_VIEW: rank // n_spatial % n_view, AXIS_SPATIAL: rank % n_spatial}
-    groups = {}
-    for axis, other in ((AXIS_DATA, n_view), (AXIS_VIEW, n_data)):
-        if shape[axis] == 1:
-            continue
-        if other == 1:
-            groups[axis] = dist.group.WORLD
-            continue
-        # new_group is collective: every rank creates every group, in order
-        for j in range(other):
-            ranks = ([d * n_view + j for d in range(n_data)] if axis == AXIS_DATA
-                     else [j * n_view + v for v in range(n_view)])
-            group = dist.new_group(ranks)
+    groups, made = {}, {}
+    for axis, rank_lists in layout["groups"].items():
+        for ranks in rank_lists:
+            if len(ranks) == 1:
+                continue
+            if tuple(ranks) not in made:
+                # new_group is collective: every rank creates every group, in order
+                made[tuple(ranks)] = (dist.group.WORLD if len(ranks) == world
+                                      else dist.new_group(ranks))
             if rank in ranks:
-                groups[axis] = group
-    return Mesh(shape, coords, groups, torch.device(device))
+                groups[axis] = made[tuple(ranks)]
+    return Mesh(shape, layout["coords"][rank], groups, torch.device(device))
 
 
 def shard_batch(tree, mesh: Mesh):

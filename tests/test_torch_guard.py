@@ -38,6 +38,7 @@ from dmvsnet_tpu_torch.engine.evaluate import build_model, run_test
 from dmvsnet_tpu_torch.engine.train import Trainer
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
 from dmvsnet_tpu_torch.models import mvsnet
+from dmvsnet_tpu_torch.parallel import Mesh
 from dmvsnet_tpu_torch.utils import synthetic
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dmvsnet_tpu"}
@@ -149,14 +150,21 @@ def test_unported_options_raise(scene):
         run_test(_cfg(scene).replace(filter_method="gipuma"), device="cpu")
     assert not os.path.exists(scene / "out")
     assert build_model(_cfg(scene), cpu).warp_impl == "torch"
-    # training: remat, bf16 and adaptive build; sp waits for a later slice
+    # training: remat, bf16 and adaptive build, and so does sp (ported in
+    # the ninth slice): a model on an sp mesh splits the rows of its cost
+    # U-Nets and of nothing else (tests/test_torch_spatial.py runs it and
+    # the Trainer on 2 ranks); one process cannot hold two sp ranks
     train_cfg = preset("dtu_train", datapath=str(scene / "data"))
     assert build_train_model(train_cfg.replace(remat=True), cpu).remat
     assert build_train_model(train_cfg.replace(compute_dtype="bfloat16"),
                              cpu).compute_dtype == torch.bfloat16
     assert build_train_model(train_cfg.replace(agg_mode="adaptive"),
                              cpu).agg_mode == "adaptive"
-    with pytest.raises(NotImplementedError, match="sp, the spatial axis"):
+    sp_mesh = Mesh({"dp": 1, "vp": 1, "sp": 2}, {"dp": 0, "vp": 0, "sp": 0}, {}, cpu)
+    sp_model = build_train_model(train_cfg.replace(mesh_spatial=2), cpu, sp_mesh)
+    split = {n for n, m in sp_model.named_modules() if getattr(m, "spatial", None) is sp_mesh}
+    assert split and all(n.startswith("cost_regularization") for n in split)
+    with pytest.raises(ValueError, match="each of the 1 ranks"):
         Trainer(train_cfg.replace(mesh_spatial=2), device="cpu")
     model = build_train_model(train_cfg, cpu)
     assert model.training and model.warp_impl == "torch"

@@ -20,10 +20,12 @@ against the JAX package:
   resume on both ranks, and the note (then the refusal) for mesh_data=3;
 * in this process: ``init_multihost`` without an environment, with the JAX
   package's variables, and with an incomplete one; the refusals of
-  WORLD_SIZE > 1 without a process group and of the spatial axis.
+  WORLD_SIZE > 1 without a process group, of a mesh that does not hold
+  the ranks, and of an empty sp band.
 
 tests/test_torch_train_step.py runs the whole train step through this
-worker on 2 dp and 2 vp ranks.
+worker on 2 dp, 2 vp, 2 sp and 2 dp x 2 sp ranks; tests/test_torch_spatial.py
+runs its own tasks through ``run_ranks`` and ``_worker``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from dmvsnet_tpu_torch.engine.train import Trainer, data_parallel
 from dmvsnet_tpu_torch.models import MVSNet
 from dmvsnet_tpu_torch.models.blocks import BatchNorm2d, BatchNorm3d, sync_batch_norm
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
-from dmvsnet_tpu_torch.parallel import Mesh, init_multihost, make_mesh
+from dmvsnet_tpu_torch.parallel import Mesh, init_multihost, make_mesh, spatial
 from dmvsnet_tpu_torch.utils import synthetic
 
 WORKER = Path(__file__).resolve()
@@ -56,15 +58,17 @@ REPO = WORKER.parent.parent
 RANK_TIMEOUT_S = 240
 
 
-def run_ranks(task: str, world: int, out_dir: Path, timeout_s: float = RANK_TIMEOUT_S):
-    """Starts ``world`` gloo ranks of this file's worker under torchrun on
+def run_ranks(task: str, world: int, out_dir: Path, timeout_s: float = RANK_TIMEOUT_S,
+              worker: Path = WORKER):
+    """Starts ``world`` gloo ranks of ``worker`` (a test file that runs
+    ``_worker`` with its own tasks; this one by default) under torchrun on
     ``task``; returns a Popen-like handle for ``collect``."""
     env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""),
                OMP_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", str(world), str(WORKER), task, str(out_dir)]
+           "--nproc_per_node", str(world), str(worker), task, str(out_dir)]
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, start_new_session=True)
     return proc, task, world, out_dir, timeout_s
@@ -123,11 +127,12 @@ def _view_task(inputs: dict, rank: int, world: int) -> dict:
 
 
 def _step_task(inputs: dict, rank: int, world: int) -> dict:
-    """One train step of the port on a dp or vp mesh: the model in DDP, the
-    step of engine/steps.py, learning rate 0 (the gradients stay in .grad).
-    With ``inputs["remat"]`` the step runs under deterministic algorithms,
-    and the same step with remat follows under "remat" (its recomputed
-    synced batch norms all_reduce again inside the backward)."""
+    """One train step of the port on a dp, vp, sp or dp x sp mesh
+    (``STEP_MESHES``): the model in DDP, the step of engine/steps.py,
+    learning rate 0 (the gradients stay in .grad).  With ``inputs["remat"]``
+    the step runs under deterministic algorithms, and the same step with
+    remat follows under "remat" (its recomputed synced batch norms, and on
+    sp its halo exchanges, all_reduce again inside the backward)."""
     if not inputs.get("remat"):
         return _one_step(inputs, rank, world, remat=False)
     torch.use_deterministic_algorithms(True)
@@ -135,16 +140,26 @@ def _step_task(inputs: dict, rank: int, world: int) -> dict:
                 remat=_one_step(inputs, rank, world, remat=True))
 
 
+# the mesh of each mode of the step task on ``world`` ranks: dp, one batch
+# element per rank; vp, one source view per rank; sp, the rows of every
+# cost U-Net split over the ranks; dpsp, 2 dp x world/2 sp
+STEP_MESHES = {"dp": lambda world: dict(n_data=world),
+               "vp": lambda world: dict(n_data=1, n_view=world),
+               "sp": lambda world: dict(n_data=1, n_spatial=world),
+               "dpsp": lambda world: dict(n_data=2, n_spatial=world // 2)}
+
+
 def _one_step(inputs: dict, rank: int, world: int, remat: bool) -> dict:
-    mode = inputs["mode"]
-    mesh = make_mesh(n_data=world) if mode == "dp" else make_mesh(n_data=1, n_view=world)
+    mesh = make_mesh(**STEP_MESHES[inputs["mode"]](world))
     model = MVSNet(ndepths=inputs["ndepths"], depth_interval_ratio=inputs["ratios"],
                    inverse_depth=True, warp_impl="cuda", mesh=mesh, remat=remat)
     model.load_state_dict(inputs["sd0"])
     batch = inputs["batch"]
-    if mode == "dp":  # rank d holds element d of the global batch
+    if mesh.size("dp") > 1:  # dp rank d holds element d of the global batch
+        d = mesh.coords["dp"]
+
         def take(v):
-            return {k: take(x) for k, x in v.items()} if isinstance(v, dict) else v[rank:rank + 1]
+            return {k: take(x) for k, x in v.items()} if isinstance(v, dict) else v[d:d + 1]
         batch = take(batch)
     opt, sched = make_optimizer(model.parameters(), lambda n: 0.0)
     step = make_train_step(inputs["dlossw"], "regression", mesh)
@@ -187,12 +202,12 @@ TASKS = {"bn_view": lambda i, r, w: {**_bn_task(i, r, w), **_view_task(i, r, w)}
          "view": _view_task, "step": _step_task, "trainer": _trainer_task}
 
 
-def _worker(task: str, out_dir: str) -> None:
+def _worker(task: str, out_dir: str, tasks: dict | None = None) -> None:
     torch.set_num_threads(1)
     info = init_multihost("cpu")
     rank, world = info["process_index"], info["process_count"]
     inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
-    result = TASKS[task](inputs, rank, world)
+    result = (TASKS if tasks is None else tasks)[task](inputs, rank, world)
     result["init"] = info
     result["backend"] = dist.get_backend()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "dmvsnet_tpu"))
@@ -413,8 +428,12 @@ def test_mesh_axes_and_refusals(clean_env):
     assert mesh.shape == {"dp": 1, "vp": 1, "sp": 1} and mesh.groups == {}
     x = torch.ones(3, requires_grad=True)
     assert mesh.psum(x, "dp") is x and torch.equal(mesh.mean(x, "vp"), x.detach())
-    with pytest.raises(NotImplementedError, match="sp, the spatial axis"):
+    # sp builds on two ranks (tests/test_torch_spatial.py); one rank cannot
+    # hold an sp = 2 mesh, and a band that would be empty raises
+    with pytest.raises(ValueError, match="each of the 1 ranks"):
         make_mesh(n_spatial=2)
+    with pytest.raises(ValueError, match="stage height 8 leaves a band empty over sp=2"):
+        spatial.row_bands(8, 2)
     with pytest.raises(ValueError, match="each of the 1 ranks"):
         make_mesh(n_data=2)
     with pytest.raises(ValueError, match="must divide the 4 source views"):

@@ -1,12 +1,16 @@
 """The training slice as a whole: one fp32 train step of the port vs the JAX
 package's ``make_train_step`` with identical weights and batch, at 64x96,
 3 views, batch 2, ndepths 8/8/8, interval ratios 4/2/1, inverse depth.
-The same step also runs data-parallel, each time on 2 gloo ranks (the
-worker of tests/test_torch_parallel.py): dp, one batch element per rank;
-vp, the whole batch on both ranks and one source view each.  Both are held
-against the same JAX step (global batch), with the same tolerances.  The
-two batch elements' masks differ (element 0 has a second hole), so the dp
-ranks' mask counts differ and a mean of per-rank means would show.
+The same step also runs on gloo ranks (the worker of
+tests/test_torch_parallel.py): dp on 2 ranks, one batch element per rank;
+vp on 2, the whole batch on both ranks and one source view each; sp on 2,
+the whole batch on both and the rows of every cost U-Net split (at 64x96
+stage 1 has 16 rows: bands of 8 + 8); dpsp on 4, 2 dp x 2 sp.  All are
+held against the same JAX step (global batch), with the same tolerances.
+The two batch elements' masks differ (element 0 has a second hole), so the
+dp ranks' mask counts differ and a mean of per-rank means would show.  The
+dp and sp steps are repeated with remat and must equal themselves bit for
+bit.
 
 The weights start on the port's side (seeded init, random batch-norm
 parameters and statistics, probability heads damped by 0.2 to keep the
@@ -54,6 +58,8 @@ NDEPTHS, RATIOS, DLOSSW = (8, 8, 8), (4, 2, 1), (0.5, 1.0, 2.0)
 LOSS_RTOL = 1e-5
 GRAD_RTOL_ALL, GRAD_RTOL_MEDIAN, GRAD_RTOL_WORST = 5e-3, 1e-3, 0.1
 STAT_RTOL = 1e-4
+# the ranked steps: mode -> ranks (tests/test_torch_parallel.STEP_MESHES)
+RANKS = {"dp": 2, "vp": 2, "sp": 2, "dpsp": 4}
 
 
 def _record_grads() -> optax.GradientTransformation:
@@ -99,13 +105,13 @@ def step_results(tmp_path_factory):
     def move(v):
         return {k: move(x) for k, x in v.items()} if isinstance(v, dict) else torch.from_numpy(v)
 
-    # the 2-rank steps run while JAX compiles
+    # the ranked steps run while JAX compiles
     runs = {}
-    for mode in ("dp", "vp"):
+    for mode, world in RANKS.items():
         d = tmp_path_factory.mktemp(mode)
         torch.save(dict(mode=mode, sd0=sd0, batch=move(batch), ndepths=NDEPTHS, ratios=RATIOS,
-                        dlossw=DLOSSW, remat=mode == "dp"), d / "inputs.pt")
-        runs[mode] = run_ranks("step", 2, d)
+                        dlossw=DLOSSW, remat=mode in ("dp", "sp")), d / "inputs.pt")
+        runs[mode] = run_ranks("step", world, d)
 
     params, stats = jax_tree_from_state_dict(sd0)
     jm = JMVSNet(ndepths=NDEPTHS, depth_interval_ratio=RATIOS, inverse_depth=True)
@@ -191,26 +197,28 @@ def test_new_batch_stats_match_jax(step_results):
     _check_stats(r["model"].state_dict(), r["j_stats"], r["sd0"])
 
 
-@pytest.mark.parametrize("mode", ["dp", "vp"])
+@pytest.mark.parametrize("mode", list(RANKS))
 def test_two_rank_loss_and_metrics_match_jax(step_results, mode):
-    r0, r1 = step_results["ranks"][mode]
-    # the global scalars, the same on both ranks
-    assert r0["scalars"] == r1["scalars"]
+    ranks = step_results["ranks"][mode]
+    r0 = ranks[0]
+    # the global scalars, the same on every rank
+    assert all(r["scalars"] == r0["scalars"] for r in ranks)
     _check_scalars(r0["scalars"], step_results["j_scalars"])
-    if mode == "dp":  # one element each, different mask counts
-        assert r0["mask_count"] != r1["mask_count"]
-    assert r0["backend"] == "gloo" and r0["init"]["process_count"] == 2
+    if mode in ("dp", "dpsp"):  # one element per dp coordinate, different mask counts
+        assert r0["mask_count"] != ranks[-1]["mask_count"]
+    assert r0["backend"] == "gloo" and r0["init"]["process_count"] == RANKS[mode]
 
 
-@pytest.mark.parametrize("mode", ["dp", "vp"])
+@pytest.mark.parametrize("mode", list(RANKS))
 def test_two_rank_gradients_match_jax(step_results, mode):
-    r0, r1 = step_results["ranks"][mode]
-    # DDP leaves the same averaged gradient on both ranks
-    assert all(torch.equal(g, r1["grads"][n]) for n, g in r0["grads"].items())
+    ranks = step_results["ranks"][mode]
+    r0 = ranks[0]
+    # DDP leaves the same averaged gradient on every rank
+    assert all(torch.equal(g, r["grads"][n]) for r in ranks for n, g in r0["grads"].items())
     _check_grads({n: g.numpy() for n, g in r0["grads"].items()}, step_results["j_grads"])
 
 
-@pytest.mark.parametrize("mode", ["dp", "vp"])
+@pytest.mark.parametrize("mode", list(RANKS))
 def test_two_rank_batch_stats_match_jax(step_results, mode):
     for r in step_results["ranks"][mode]:
         _check_stats(r["state"], step_results["j_stats"], step_results["sd0"])
@@ -236,6 +244,21 @@ def test_two_rank_remat_step_equals_step(step_results):
     all_reduce again in the backward, in the same order on both ranks, and
     update no running statistic."""
     for r in step_results["ranks"]["dp"]:
+        on = r["remat"]
+        assert on["scalars"] == r["scalars"] and torch.equal(on["depth"], r["depth"])
+        for n, g in r["grads"].items():
+            assert torch.equal(g, on["grads"][n]), n
+        for k, v in r["state"].items():
+            assert torch.equal(v, on["state"][k]), k
+
+
+def test_sp_remat_step_equals_step(step_results):
+    """The sp step with remat on both ranks equals the sp step without it
+    bit for bit (both under deterministic algorithms): the recomputed banded
+    U-Nets issue their halo exchanges and synced batch norms again in the
+    backward, in the same order on both ranks, and update no running
+    statistic."""
+    for r in step_results["ranks"]["sp"]:
         on = r["remat"]
         assert on["scalars"] == r["scalars"] and torch.equal(on["depth"], r["depth"])
         for n, g in r["grads"].items():
