@@ -38,7 +38,8 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    the kernel launched exactly 6 cost passes x 3 dispatches, then checks
    one batch of the same model against the same model with plain cost
    passes, and that each stage's depths lie inside the hypotheses they
-   were regressed from;
+   were regressed from; run_test's params / FLOPs / bytes line is kept
+   for phase 24 (its counted forward is one more launch set);
    then kernel 1 as in phase 3 on the inputs that batch's six cost passes
    received ("inputs": "model eval");
 6. the training main path: the CLI at --preset dtu_train (512x640, 5 views,
@@ -167,7 +168,16 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    peak memory beside one process's, all_reduce calls and bytes per kind
    (halo, gather, batch norm), launches per rank, ms of the ranks
    time-sharing the card;
-24. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+24. "cost", the cost model (engine/profiler): params, FLOPs and bytes per
+   map of the dtu_test forward (batch 2, phase 5's scene and weights) on
+   the kernel path, the plain path (both equal) and the epipolar-routed
+   model (equal FLOPs), by kind; FLOPs and bytes per dtu_train step (phase
+   6's weights and validation batch, kernel and plain path equal); the
+   rates these imply over phase 5's ms per map and phase 6's ms per step,
+   against 67 TFLOP/s and 3.35 TB/s; a torch.profiler trace of one forward,
+   which must name kernel 1 six times; phase 5's run_test line, which must
+   have appeared once with this phase's count;
+25. a "phases" line (wall seconds of each phase), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
    inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
    on each recipe path and "recipe_model_ms" on the recipes' tensors;
@@ -209,6 +219,7 @@ from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 from dmvsnet_tpu_torch.data.loader import make_loader
 from dmvsnet_tpu_torch.engine import checkpoint as ckpt_lib
+from dmvsnet_tpu_torch.engine import evaluate, profiler
 from dmvsnet_tpu_torch.engine.evaluate import build_model
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_train_step
@@ -222,6 +233,7 @@ from dmvsnet_tpu_torch.models import mvsnet
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
+from dmvsnet_tpu_torch.ops.warp_correlate import adjoint_cost, pass_cost
 from dmvsnet_tpu_torch.parallel import (
     init_multihost,
     make_mesh,
@@ -331,14 +343,6 @@ def time_ms(fn, reps: int, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
-
-
-def pass_cost(b, v, d, h, w, c):
-    """Least bytes (each input read once, the output written once) and fp32
-    operations (10*C + 20 per pixel, plane and source view) of one pass."""
-    nbytes = 4 * (b * d * h * w + b * d * h * w * 2 + b * v * h * w * c + b * (v - 1) * 12)
-    flops = b * d * h * w * (v - 1) * (10 * c + 20)
-    return nbytes, flops
 
 
 def stage_cameras(height: int = H, width: int = W,
@@ -451,26 +455,6 @@ def count_taps(rel, depth, h: int, w: int) -> int:
                 valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
                 n += int((valid & (wgx * wgy != 0)).sum())
     return n
-
-
-def adjoint_cost(b, v, d, h, w, c, taps) -> dict[str, tuple[int, int]]:
-    """Least bytes and fp32 operations of each adjoint kernel for one pass.
-    Both read depth and the cotangent pair and the projections once.
-    grad_ref: reads the source features, writes the reference gradient;
-    8*C + 20 operations per (pixel, plane, view) (4 taps x C multiply-adds,
-    the geometry) and 2*C per (pixel, plane) for the cotangent.
-    grad_src: reads the reference features, writes the source gradient;
-    2*C operations per (pixel, plane), 20 per (pixel, plane, view) and 2*C
-    per tap that these inputs really add (``taps``)."""
-    shared = b * d * h * w * 3 + b * (v - 1) * 12
-    return {
-        "warp_correlate_grad_ref": (
-            4 * (shared + b * (v - 1) * h * w * c + b * h * w * c),
-            b * d * h * w * ((v - 1) * (8 * c + 20) + 2 * c)),
-        "warp_correlate_grad_src": (
-            4 * (shared + b * h * w * c + b * (v - 1) * h * w * c),
-            b * d * h * w * (2 * c + (v - 1) * 20) + taps * 2 * c),
-    }
 
 
 def plain_grad(feats, rel, depth, cot, wrt: str):
@@ -1059,7 +1043,9 @@ def epipolar_path(dev, tmp: str) -> tuple[dict, dict, list]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = cuda_build.launches()
-        expected = implied_launches(summary["sweep_engaged"])
+        # run_test's counted forward runs the first batch: its flags are
+        # the first dispatch's
+        expected = implied_launches(summary["sweep_engaged"][:1] + summary["sweep_engaged"])
         if (summary["maps"] != V or len(summary["sweep_engaged"]) != -(-V // B)
                 or any(len(d) != 6 for d in summary["sweep_engaged"]) or launches != expected):
             raise AssertionError(f"epipolar path: {summary['maps']} maps, launches {launches}, "
@@ -1275,6 +1261,13 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
         peak_mem_gb=peak_mem_gb), launches, captured
 
 
+def run_test_forwards(dispatches: int) -> int:
+    """Forwards of one run_test: one per dispatch, and one more of the first
+    batch for its params / FLOPs / bytes line (engine/profiler.model_summary
+    counts a real call)."""
+    return dispatches + 1
+
+
 def expect_launches(what: str, got: dict, **want: int) -> None:
     """Raises unless the launch counts ``got`` are ``want`` (0 for every
     kernel not named)."""
@@ -1342,7 +1335,8 @@ def geometry_gate(dev, tmp: str, num_worker: int = 2) -> tuple[dict, str]:
         n = 6 * GATE_STEPS
         expect_launches("gate overfit", train_launches, warp_correlate=n,
                         warp_correlate_grad_ref=n, warp_correlate_grad_src=n)
-        expect_launches("gate --test", test_launches, warp_correlate=6 * GATE_V)
+        expect_launches("gate --test", test_launches,
+                        warp_correlate=6 * run_test_forwards(GATE_V))
     xyz, _ = read_ply(summary["ply"][0])
     # GT "stl": a 2 mm grid on z = PLANE_Z over the region all views see
     gx, gy = np.meshgrid(np.arange(-150.0, 150.0, 2.0), np.arange(-120.0, 120.0, 2.0))
@@ -1379,7 +1373,8 @@ def recipe_dtu(dev, tmp: str, weights: str) -> tuple[dict, str]:
     cuda_build.reset_launches()
     summary = cli.main(argv)
     launches = cuda_build.launches()
-    expect_launches("recipe_dtu", launches, warp_correlate=6 * -(-RECIPE_V // cfg.eval_batch))
+    expect_launches("recipe_dtu", launches,
+                    warp_correlate=6 * run_test_forwards(-(-RECIPE_V // cfg.eval_batch)))
     if summary["maps"] != RECIPE_V:
         raise AssertionError(f"recipe_dtu: {summary['maps']} maps")
     check_pfms(outdir, RECIPE_V)
@@ -1437,7 +1432,7 @@ def recipe_tank(dev, tmp: str, weights: str) -> dict:
     launches = cuda_build.launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     reserved_gb = torch.cuda.max_memory_reserved() / 1e9
-    expect_launches("recipe_tank", launches, warp_correlate=6 * RECIPE_V)
+    expect_launches("recipe_tank", launches, warp_correlate=6 * run_test_forwards(RECIPE_V))
     if summary["maps"] != RECIPE_V:
         raise AssertionError(f"recipe_tank: {summary['maps']} maps")
     for v in range(RECIPE_V):
@@ -1578,7 +1573,8 @@ def bf16_eval(dev, tmp: str) -> tuple[dict, list]:
         summary = cli.main(argv)
         torch.cuda.synchronize()
         launches = cuda_build.launches()
-        expect_launches(f"bf16 eval ({name})", launches, warp_correlate=6 * -(-V // B))
+        expect_launches(f"bf16 eval ({name})", launches,
+                        warp_correlate=6 * run_test_forwards(-(-V // B)))
         check_pfms(out_dir, V)
         diffs = map_diffs(out_dir, os.path.join(tmp, "out"))
         if not (diffs["depth_mean_mm"] <= BF16_TOL["mean_mm"]
@@ -1764,7 +1760,8 @@ def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
     summary = cli.main(argv)
     torch.cuda.synchronize()
     cli_launches = cuda_build.launches()
-    expect_launches("adaptive eval", cli_launches, warp_correlate=6 * per_pass * -(-V // B))
+    expect_launches("adaptive eval", cli_launches,
+                    warp_correlate=6 * per_pass * run_test_forwards(-(-V // B)))
     check_pfms(out_dir, V)
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     model = build_model(cfg, dev)
@@ -2367,6 +2364,135 @@ def sp_phase(dev, tmp: str, train_argv: list[str], test_argv: list[str], cli_arg
                 seconds=time.perf_counter() - t_total)
 
 
+class _Tee:
+    """A text stream that writes to ``out`` and keeps what it wrote."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def run_test_line():
+    """Within the block stdout is kept and every engine/evaluate
+    model_summary result recorded; at exit the yielded dict holds "lines",
+    the printed lines that start with "params:", and "summaries"."""
+    kept = {"lines": [], "summaries": []}
+    tee, real_stdout, real_summary = _Tee(sys.stdout), sys.stdout, evaluate.model_summary
+
+    def recording(model, *args):
+        kept["summaries"].append(real_summary(model, *args))
+        return kept["summaries"][-1]
+
+    sys.stdout, evaluate.model_summary = tee, recording
+    try:
+        yield kept
+    finally:
+        sys.stdout, evaluate.model_summary = real_stdout, real_summary
+        kept["lines"] = [x for x in "".join(tee.parts).splitlines() if x.startswith("params:")]
+
+
+def trace_kernel_events(trace_dir: str) -> dict[str, list[float]]:
+    """The device kernels of a ``profiler.device_trace`` Chrome trace, by
+    hand-written kernel (the name of its __global__ function): their
+    durations in ms; "other" for every other kernel."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    out = {name: [] for name in (*cuda_build.KERNELS, "other")}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = next((k for k in cuda_build.KERNELS if f"{k}_kernel" in e.get("name", "")), "other")
+        out[name].append(e.get("dur", 0.0) / 1e3)
+    return out
+
+
+def cost_phase(dev, tmp: str, eval_main: dict, eval_line: dict, train: dict) -> dict:
+    """Phase 24, the cost model (engine/profiler): params, FLOPs and bytes
+    per map of the dtu_test forward at batch 2 on phase 5's scene and
+    weights, on the kernel path, the plain path and the epipolar-routed
+    model (default routing); the kinds of the kernel path's count; FLOPs
+    and bytes of one dtu_train step (phase 6's weights and validation batch,
+    Adam at learning rate 0) on both paths; the rates over phase 5's ms per
+    map and phase 6's ms per step; one forward under device_trace, whose
+    trace must name kernel 1 six times; and phase 5's run_test line, which
+    must have appeared once with the kernel path's count."""
+    cfg = cli.config_from_args(cli.build_parser().parse_args(eval_argv(tmp)))
+    model = build_model(cfg, dev)
+    imgs, proj, dv = load_batch(cfg, dev)
+
+    def summary(impl: str) -> dict:
+        model.warp_impl = impl
+        return profiler.model_summary(model, imgs, proj, dv)
+
+    kernel, plain, epi = summary("cuda"), summary("torch"), summary("epipolar")
+    model.warp_impl = "cuda"
+    if kernel != plain or epi["flops"] != kernel["flops"] or epi["params"] != kernel["params"]:
+        raise AssertionError(f"cost: kernel path {kernel}, plain path {plain}, epipolar {epi}")
+    with torch.no_grad():
+        kinds = profiler.cost_breakdown(model, imgs, proj, dv)
+    if {k: float(sum(v.values())) for k, v in kinds.items()} != {
+            k: kernel[k] for k in ("flops", "bytes_accessed")}:
+        raise AssertionError(f"cost: breakdown {kinds} against {kernel}")
+    want = f"params: {kernel['params']:,}  flops: {kernel['flops']:.3e}  " \
+           f"bytes: {kernel['bytes_accessed']:.3e}"
+    if eval_line["lines"] != [want] or eval_line["summaries"] != [kernel]:
+        raise AssertionError(f"cost: run_test printed {eval_line['lines']} "
+                             f"({eval_line['summaries']}), expected [{want!r}]")
+
+    trace_dir = os.path.join(tmp, "trace")
+    with torch.inference_mode(), profiler.device_trace(trace_dir):
+        model(imgs, proj, dv)
+    traced = trace_kernel_events(trace_dir)
+    if len(traced["warp_correlate"]) != 6:
+        raise AssertionError(f"cost: the trace names kernel 1 {len(traced['warp_correlate'])} "
+                             f"times, expected 6; kernels traced: "
+                             f"{ {k: len(v) for k, v in traced.items()} }")
+    del model
+
+    tcfg, sd, batch = option_inputs(dev, tmp, train["checkpoint"])
+    step = make_train_step(tuple(tcfg.dlossw), tcfg.depth_mode)
+
+    def step_cost(impl: str) -> dict:
+        net = train_model(tcfg, sd, dev)
+        net.warp_impl = impl
+        optimizer, scheduler = make_optimizer(net.parameters(), lambda i: 0.0)
+        return profiler.cost_breakdown(step, net, optimizer, scheduler, batch)
+
+    step_kernel, step_plain = step_cost("cuda"), step_cost("torch")
+    if step_kernel != step_plain:
+        raise AssertionError(f"cost: train step kernel path {step_kernel}, plain {step_plain}")
+    step_flops = sum(step_kernel["flops"].values())
+    step_bytes = sum(step_kernel["bytes_accessed"].values())
+
+    def rates(flops: float, nbytes: float, ms: float) -> dict:
+        return dict(ms=ms, tflop_s=flops / ms / 1e9, share_of_fp32_peak=flops / ms * 1e3 / PEAK_FP32_S,
+                    gb_s=nbytes / ms / 1e6, share_of_hbm=nbytes / ms * 1e3 / PEAK_BYTES_S)
+
+    ms_map, ms_step = eval_main["ms_per_map_kernel"], train["train_step_ms"]
+    return dict(
+        params=kernel["params"], batch=B,
+        flops_per_map=kernel["flops"] / B, bytes_per_map=kernel["bytes_accessed"] / B,
+        plain_path_equal=True, epipolar_flops_per_map=epi["flops"] / B,
+        epipolar_bytes_per_map=epi["bytes_accessed"] / B,
+        flops_per_map_by_kind={k: v / B for k, v in kinds["flops"].items()},
+        bytes_per_map_by_kind={k: v / B for k, v in kinds["bytes_accessed"].items()},
+        train_batch=int(batch["imgs"].shape[0]), flops_per_step=step_flops,
+        bytes_per_step=step_bytes, flops_per_step_by_kind=step_kernel["flops"],
+        bytes_per_step_by_kind=step_kernel["bytes_accessed"],
+        eval_rate=rates(kernel["flops"] / B, kernel["bytes_accessed"] / B, ms_map),
+        train_rate=rates(step_flops, step_bytes, ms_step),
+        run_test_line=eval_line["lines"][0],
+        trace_kernels={k: len(v) for k, v in traced.items()},
+        trace_kernel_ms={k: sum(v) for k, v in traced.items()})
+
+
 def report(every: list[dict], eval_launches, train_launches, epi_launches,
            fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict],
            options: dict[str, dict]) -> None:
@@ -2519,11 +2645,13 @@ def main() -> None:
             argv = eval_argv(tmp)
             cuda_build.reset_launches()
             t0 = time.perf_counter()
-            summary = cli.main(argv)
+            with run_test_line() as line:
+                summary = cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             eval_launches = cuda_build.launches()
-            expected = {"warp_correlate": 6 * -(-V // B), "warp_correlate_grad_ref": 0,
+            expected = {"warp_correlate": 6 * run_test_forwards(-(-V // B)),
+                        "warp_correlate_grad_ref": 0,
                         "warp_correlate_grad_src": 0, "resample": 0, "sweep1d": 0}
             if summary["maps"] != V or eval_launches != expected:
                 raise AssertionError(f"main path: {summary['maps']} maps, launches "
@@ -2532,15 +2660,14 @@ def main() -> None:
             cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
             batch, eval_captured = check_batch(cfg, dev)
             d = summary["dispatch_seconds"]
-            print("main " + json.dumps(dict(
-                maps=summary["maps"], launches=eval_launches["warp_correlate"],
-                run_test_wall_s=wall, dispatch_s=d,
-                ms_per_map_after_first_dispatch=1e3 * sum(d[1:]) / (V - B), **batch)),
-                flush=True)
+            main = dict(maps=summary["maps"], launches=eval_launches["warp_correlate"],
+                        run_test_wall_s=wall, dispatch_s=d,
+                        ms_per_map_after_first_dispatch=1e3 * sum(d[1:]) / (V - B), **batch)
+            print("main " + json.dumps(main), flush=True)
             # kernel 1 on the model's own cost-pass inputs
-            return eval_launches, model_rows(eval_captured, "model eval")
+            return eval_launches, model_rows(eval_captured, "model eval"), main, line
 
-        eval_launches, model = timed("eval", eval_main_path)
+        eval_launches, model, eval_main, eval_line = timed("eval", eval_main_path)
 
         epi, epi_launches, (resamples, sweeps) = timed("epipolar", epipolar_path, dev, tmp)
         print("epipolar " + json.dumps(epi), flush=True)
@@ -2624,6 +2751,11 @@ def main() -> None:
                    train_argv(tmp, "logs_sp_cli") + ["--max_train_samples", "2"],
                    train["checkpoint"], yardstick, train["train_step_ms"])
         print("sp " + json.dumps(sp), flush=True)
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        cost = timed("cost", cost_phase, dev, tmp, eval_main, eval_line, train)
+        print("cost " + json.dumps(cost), flush=True)
 
     print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
           flush=True)

@@ -1,6 +1,8 @@
 """Depth-map inference runner (port of dmvsnet_tpu.engine.evaluate.run_test).
 
-Per scene: the T&T resolution override, a fresh eval dataset, the infer
+Once per run, at the first batch: the model's params / FLOPs / bytes line
+(``engine/profiler.model_summary``, the reference's thop print).  Per
+scene: the T&T resolution override, a fresh eval dataset, the infer
 step per batch of reference views (the tail batch padded by repetition),
 and the reference-compatible outputs depth_est/*.pfm, confidence/*.pfm,
 cams/*_cam.txt, images/*.jpg; then point-cloud fusion of every scan
@@ -26,6 +28,7 @@ from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 from dmvsnet_tpu_torch.data.splits import resolve_scan_list
 from dmvsnet_tpu_torch.engine import colormap
 from dmvsnet_tpu_torch.engine.checkpoint import restore_weights
+from dmvsnet_tpu_torch.engine.profiler import model_summary
 from dmvsnet_tpu_torch.engine.steps import make_infer_step
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
 from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG, dypcd_filter, pcd_filter
@@ -45,6 +48,11 @@ def build_model(cfg: Config, device: torch.device) -> MVSNet:
 def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
     """Depth inference over ``cfg``'s scans; runs on CUDA unless
     ``device="cpu"``.
+
+    Before the first dispatch, prints the model's ``params: N  flops: F
+    bytes: B`` line (``engine/profiler.model_summary`` of one forward of
+    the first batch, which runs the model once more, outside the timed
+    dispatches).
 
     Returns {"maps": depth maps written, "dispatch_seconds": wall seconds
     of each infer dispatch (host copy of the result included),
@@ -72,13 +80,12 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
         scans = resolve_scan_list(cfg.testlist, cfg.datapath)
     model = build_model(cfg, device)
     infer = make_infer_step()
-    maps, dispatch_seconds, engaged = 0, [], []
-    if model.warp_impl == "epipolar":
-        def record(_module, _args, out):
-            stages = [k for k in out if k.startswith("stage")]
-            engaged.append({k + suffix: out[k]["sweep_engaged" + suffix].tolist()
-                            for k in stages for suffix in ("", "_refine")})
-        model.register_forward_hook(record)
+    maps, dispatch_seconds, engaged, summarized = 0, [], [], False
+
+    def record(_module, _args, out):
+        stages = [k for k in out if k.startswith("stage")]
+        engaged.append({k + suffix: out[k]["sweep_engaged" + suffix].tolist()
+                        for k in stages for suffix in ("", "_refine")})
 
     # fix_res latch carried across the per-scene datasets
     latched_hw = None
@@ -120,6 +127,15 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
                 imgs = torch.from_numpy(imgs_np).to(device)
                 proj = {k: torch.from_numpy(v).to(device) for k, v in proj_np.items()}
                 dv = torch.from_numpy(dv_np).to(device)
+                if not summarized:
+                    # the one-time params / FLOPs line (the reference's thop
+                    # print), counted on one forward of this batch, untimed
+                    s = model_summary(model, imgs, proj, dv)
+                    print(f"params: {s['params']:,}  flops: {s['flops']:.3e}  "
+                          f"bytes: {s['bytes_accessed']:.3e}", flush=True)
+                    if model.warp_impl == "epipolar":
+                        model.register_forward_hook(record)
+                    summarized = True
 
                 t0 = time.perf_counter()
                 depth_b, conf_b = infer(model, imgs, proj, dv)

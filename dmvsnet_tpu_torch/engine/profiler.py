@@ -27,21 +27,34 @@ Measures only: the port itself never sets
 ``--tf32`` or ``--cudnn-benchmark`` (it pins fp32 and leaves cuDNN's
 algorithm choice at its default); the flags exist to measure what they
 would change.
+
+Beside these tools, the JAX package's profiling API under its names
+(port of dmvsnet_tpu.engine.profiler, the counterpart of the reference's
+thop print): ``count_params``, ``cost_analysis`` (FLOPs and bytes of one
+call, counted as its docstring defines), ``model_summary`` (both for an
+eval forward: the line ``run_test`` prints once per run), ``wall_clock``
+and ``device_trace`` (a torch.profiler Chrome trace).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
+import time
 from collections import defaultdict
+from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.config import preset
-from dmvsnet_tpu_torch.engine.evaluate import build_model
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
@@ -49,6 +62,207 @@ from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
 from dmvsnet_tpu_torch.utils import synthetic
+
+
+def count_params(model: torch.nn.Module) -> int:
+    """Parameters only, not buffers: the JAX package counts ``params``
+    without ``batch_stats``."""
+    return sum(p.numel() for p in model.parameters())
+
+
+# Operations per element of the aten ops that cost_analysis counts besides
+# convolutions and matmuls (see its docstring).
+_BN_FORWARD = {"native_batch_norm", "cudnn_batch_norm", "miopen_batch_norm",
+               "_native_batch_norm_legit", "_native_batch_norm_legit_no_training",
+               "_batch_norm_with_update", "_batch_norm_no_update"}
+_BN_BACKWARD = {"native_batch_norm_backward", "cudnn_batch_norm_backward",
+                "miopen_batch_norm_backward", "batch_norm_backward"}
+_PER_OUTPUT = {"_softmax": 5, "_log_softmax": 5, "_softmax_backward_data": 4,
+               "_log_softmax_backward_data": 4, "upsample_bilinear2d": 8,
+               "upsample_bilinear2d_backward": 8}
+_PER_INPUT = {"sum": 1, "mean": 1, "amax": 1, "amin": 1, "max": 1, "min": 1, "prod": 1,
+              "argmax": 1, "argmin": 1, "var": 3, "std": 3, "var_mean": 3, "std_mean": 3}
+_COPIES = {"clone", "_to_copy", "copy", "copy_", "lift_fresh_copy", "alias_copy"}
+# ops that move no data: allocation, aliasing and metadata
+_NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+             "detach", "lift_fresh", "alias", "_unsafe_view", "set_", "resize_",
+             "record_stream", "_record_function_enter_new", "_record_function_exit"}
+# ops that write their output without reading their tensor arguments' data
+_WRITE_ONLY = {"zeros_like", "ones_like", "full_like", "rand_like", "randn_like",
+               "new_zeros", "new_ones", "new_full", "zero_", "fill_", "scalar_tensor",
+               "arange", "zeros", "ones", "full", "linspace"}
+
+
+def _numel(x) -> int:
+    return x.numel() if isinstance(x, torch.Tensor) else 0
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _op_flops(func, args, kwargs, out) -> tuple[str, int]:
+    """(kind, operations) of one aten op, as cost_analysis defines them."""
+    packet, name = func.overloadpacket, func.overloadpacket.__name__
+    if packet in flop_registry:
+        kind = "convolution" if "conv" in name else "matmul"
+        return kind, int(flop_registry[packet](*args, **kwargs, out_val=out))
+    if name in _BN_FORWARD:
+        training = (name == "_batch_norm_with_update"
+                    or name not in ("_native_batch_norm_legit_no_training",
+                                    "_batch_norm_no_update") and bool(args[5]))
+        return "batch_norm", (7 if training else 4) * args[0].numel()
+    if name in _BN_BACKWARD:
+        return "batch_norm", 8 * args[0].numel()
+    if name in _PER_OUTPUT:
+        kind = "softmax" if "softmax" in name else "resample"
+        return kind, _PER_OUTPUT[name] * _tensors(out)[0].numel()
+    if name in _PER_INPUT:
+        return "reduction", _PER_INPUT[name] * args[0].numel()
+    if name in ("index_put", "index_put_"):
+        accumulate = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+        return "scatter", args[2].numel() if accumulate else 0
+    if name in ("index_add", "index_add_", "scatter_add", "scatter_add_"):
+        return "scatter", args[3].numel()
+    if torch.Tag.pointwise in func.tags and name not in _COPIES:
+        return "pointwise", _tensors(out)[0].numel()
+    return "other", 0
+
+
+def _op_bytes(func, args, kwargs, out) -> int:
+    name = func.overloadpacket.__name__
+    if func.is_view or name in _NO_BYTES:
+        return 0
+    written = sum(t.numel() * t.element_size() for t in _tensors(out))
+    if name in _WRITE_ONLY:
+        return written
+    read_args = (args[1:], kwargs) if name == "copy_" else (args, kwargs)
+    return written + sum(t.numel() * t.element_size() for t in _tensors(read_args))
+
+
+class _CostCounter(TorchDispatchMode):
+    """The counter of ``cost_analysis``: a dispatch mode that counts every
+    aten op outside the cost passes, and the passes' own reports
+    (``ops/warp_correlate.COUNTER``), by kind."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops: dict[str, int] = defaultdict(int)
+        self.bytes: dict[str, int] = defaultdict(int)
+        self._suspended = 0
+
+    @contextlib.contextmanager
+    def suspend(self):
+        self._suspended += 1
+        try:
+            yield
+        finally:
+            self._suspended -= 1
+
+    def add(self, kind: str, nbytes: int, flops: int) -> None:
+        self.bytes[kind] += nbytes
+        self.flops[kind] += flops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not self._suspended:
+            kind, flops = _op_flops(func, args, kwargs, out)
+            self.add(kind, _op_bytes(func, args, kwargs, out), flops)
+        return out
+
+
+def cost_breakdown(fn: Callable, *args) -> dict[str, dict[str, int]]:
+    """``cost_analysis`` of ``fn(*args)`` by kind: {"flops": {kind: n},
+    "bytes_accessed": {kind: n}}, kinds "convolution", "matmul",
+    "cost_pass", "cost_pass_adjoint", "batch_norm", "softmax", "resample",
+    "reduction", "scatter", "pointwise" and "other" (ops that move bytes
+    and count no operation: copies, gathers, concatenations, fills)."""
+    counter = _CostCounter()
+    if wc.COUNTER is not None:
+        raise RuntimeError("cost counting does not nest")
+    wc.COUNTER = counter
+    try:
+        with counter:
+            fn(*args)
+    finally:
+        wc.COUNTER = None
+    return {"flops": dict(counter.flops), "bytes_accessed": dict(counter.bytes)}
+
+
+def cost_analysis(fn: Callable, *args) -> dict[str, float]:
+    """FLOPs and bytes accessed of one call ``fn(*args)``, which runs for
+    real (on the device of its tensors) under a counter; its result is
+    dropped.  A real call, and not a shape-only one, because the epipolar
+    route decides its pairs on the host from real values and a mesh's
+    collectives need real tensors.  The count is this process's program,
+    as the JAX function takes the first device program's analysis.
+
+    * FLOPs: aten convolutions and matmuls, and their backward where ``fn``
+      differentiates, at 2 per multiply-add with the taps that fall in the
+      padding included, as ``torch.utils.flop_counter`` counts them; plus
+      every cost pass at its canonical count, ``pass_cost`` (and both
+      ``adjoint_cost``s with every tap where ``fn`` differentiates it), the
+      same whatever computes the pass (``ops/warp_correlate.counted_pass``);
+      plus, per element: batch norm 4 (7 with batch statistics) and its
+      backward 8; softmax 5 and its backward 4; bilinear upsampling 8;
+      reductions 1 per input element (variances 3); an accumulating
+      scatter 1 per value; every other pointwise op 1 per output element
+      (comparisons and selections included, copies not).  Every other op
+      counts 0.
+    * Bytes: for every aten op outside the passes, except views, aliases
+      and allocations, the bytes of its tensor arguments (read) and of its
+      outputs (written), each at its logical size; an op that only writes
+      (a fill, ``zeros_like``) counts its outputs alone; plus each pass's
+      least bytes (``pass_cost`` / ``adjoint_cost``).  This is the traffic
+      of an eager program in which nothing stays in cache, not XLA's
+      figure for a fused program.
+    * A recomputation under remat is counted again, as in XLA's program.
+    """
+    kinds = cost_breakdown(fn, *args)
+    return {k: float(sum(v.values())) for k, v in kinds.items()}
+
+
+def model_summary(model: torch.nn.Module, *example_args) -> dict[str, Any]:
+    """params, FLOPs and bytes of an eval forward of ``model`` on
+    ``example_args`` under ``torch.no_grad()`` (``cost_analysis``): the line
+    ``run_test`` prints once per run.  The model's mode is restored."""
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            costs = cost_analysis(model, *example_args)
+    finally:
+        model.train(training)
+    return {"params": count_params(model), **costs}
+
+
+@contextlib.contextmanager
+def wall_clock(label: str = "", sync: Any = None):
+    """Wall-time context that prints ``label: X.XXXs``; every CUDA device
+    holding a tensor of ``sync`` (any nesting of lists, tuples and dicts)
+    is synchronised first."""
+    t0 = time.perf_counter()
+    yield
+    for device in {t.device for t in _tensors(sync) if t.is_cuda}:
+        torch.cuda.synchronize(device)
+    print(f"{label}: {time.perf_counter() - t0:.3f}s", flush=True)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """torch.profiler over the block, CPU and (where there is one) CUDA
+    activity; writes the Chrome trace ``log_dir/trace.json`` at exit
+    (open it in Perfetto or chrome://tracing).  Yields the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def _batch(cfg, batch: int, n_views: int, height: int, width: int, device) -> dict:
@@ -66,7 +280,9 @@ def _batch(cfg, batch: int, n_views: int, height: int, width: int, device) -> di
     return move(b)
 
 
-def _inputs(cfg, batch: int, device):
+def synthetic_inputs(cfg, batch: int, device):
+    """(imgs, proj_matrices, depth_values) of a synthetic batch at ``cfg``'s
+    eval shape (``max_h`` x ``max_w``, ``num_view`` views) on ``device``."""
     b = _batch(cfg, batch, cfg.num_view, cfg.max_h, cfg.max_w, device)
     return b["imgs"], b["proj_matrices"], b["depth_values"]
 
@@ -251,8 +467,8 @@ def main(argv=None) -> None:
         return
     cfg = preset("dtu_test", filter_method="none", eval_batch=args.batch,
                  warp_impl=args.warp_impl, **_options(args))
-    model = build_model(cfg, device)
-    inputs = _inputs(cfg, args.batch, device)
+    model = build_train_model(cfg, device).eval()
+    inputs = synthetic_inputs(cfg, args.batch, device)
     times = breakdown(model, inputs)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():

@@ -61,7 +61,15 @@ package's ``train`` argument does.
 * ``remat=True`` in train mode recomputes in the backward the feature net,
   each cost U-Net and each cost pass but the adaptive one
   (``blocks.checkpoint``; running statistics are updated once per step),
-  as the JAX package's ``nn.remat`` / ``jax.checkpoint`` do.
+  as the JAX package's ``nn.remat`` / ``jax.checkpoint`` do;
+* ``run_stages`` (a diagnostic, as in the JAX package): 0 runs every
+  stage; k stops after k whole stages; a fraction stops part way through
+  stage int(k) + 1 and returns what it reached under ``outputs["partial"]``:
+  + 0.2 the hypotheses (B, D, H, W), + 0.4 the first cost volume
+  (B, D, H, W, 2), + 0.6 the cost U-Net's output (B, D, H, W, 4), + 0.8
+  the refine cost volume, + 0.9 the refine U-Net's output.  The stage
+  scales stay those of the full ``ndepths``.  Not with a mesh that splits
+  rows (its U-Net outputs are bands).
 
 Public layouts are the JAX package's: imgs (B, V, H, W, 3) with view 0 the
 reference; proj_matrices {"stage1".."stage3": (B, V, 2, 4, 4)};
@@ -119,6 +127,7 @@ class MVSNet(nn.Module):
         feature_dtype: torch.dtype | None = None,
         costreg_dtype: torch.dtype | None = None,
         remat: bool = False,
+        run_stages: float = 0,
     ):
         super().__init__()
         if warp_impl not in ("cuda", "epipolar", "torch"):
@@ -150,9 +159,12 @@ class MVSNet(nn.Module):
             self.agg_weight_refine = nn.ModuleList(
                 [AggWeightNetVolume(dtype=dtype) for _ in cr_base_channels])
         self.mesh = mesh
+        self.run_stages = run_stages
         if mesh is not None:
             sync_batch_norm(self, mesh.group(AXIS_DATA))
             if mesh.size(AXIS_SPATIAL) > 1:
+                if run_stages:
+                    raise ValueError("run_stages does not run with a mesh that splits rows")
                 for reg in (*self.cost_regularization, *self.cost_regularization_refine):
                     spatial_split(reg, mesh)
 
@@ -212,8 +224,9 @@ class MVSNet(nn.Module):
             bands = spatial.bands_for(sh, self.mesh, passes=2)
             band = None if bands is None else bands[self.mesh.coords[AXIS_SPATIAL]]
 
-            def cost_pass(key: str, dv: torch.Tensor, reg: nn.Module, sweep_stages,
-                          weight_net: nn.Module | None):
+            def cost_volume(key: str, dv: torch.Tensor, sweep_stages,
+                            weight_net: nn.Module | None):
+                """(the (B, D, H, W, 2) fp32 cost volume, ``engaged`` or None)."""
                 engaged = None
                 if self.agg_mode == "adaptive":
                     cost = warp_correlate.aggregate_cost_volume_adaptive(
@@ -229,11 +242,14 @@ class MVSNet(nn.Module):
                                        feats[key], proj2, dv, impl)
                 if self.warp_impl == "epipolar" and engaged is None:
                     engaged = torch.zeros((b, v - 1), dtype=torch.bool)
+                return cost, engaged
+
+            def regularize(cost: torch.Tensor, reg: nn.Module) -> torch.Tensor:
                 x = cost.to(self.costreg_dtype).permute(0, 4, 1, 2, 3).contiguous()
                 if band is not None:
                     x = spatial.take_rows(x, 3, band)
                 out = self._remat(self._regularize, reg, x, band is not None)  # (B, 4, D, h, w)
-                return out.permute(0, 2, 3, 4, 1), engaged          # (B, D, h, w, 4)
+                return out.permute(0, 2, 3, 4, 1)                          # (B, D, h, w, 4)
 
             def head(fn, cost_reg, dv):
                 if band is None:
@@ -243,18 +259,34 @@ class MVSNet(nn.Module):
                         if k in _HEAD_H_AXIS else x for k, x in out.items()}
 
             adaptive = self.agg_mode == "adaptive"
+            # run_stages: where in this stage to stop (99: nowhere)
+            frac = self.run_stages - s if self.run_stages else 99.0
+            if frac <= 0.3:
+                outputs["partial"] = samples
+                break
             # pass 1: full-plane sweep
-            cost_reg, engaged = cost_pass(stage, samples, self.cost_regularization[s],
-                                          self.epipolar_main_stages,
-                                          self.agg_weight[s] if adaptive else None)
+            cost, engaged = cost_volume(stage, samples, self.epipolar_main_stages,
+                                        self.agg_weight[s] if adaptive else None)
+            if frac <= 0.5:
+                outputs["partial"] = cost
+                break
+            cost_reg = regularize(cost, self.cost_regularization[s])
+            if frac <= 0.7:
+                outputs["partial"] = cost_reg
+                break
             stage_out = {**head(depth_net.forward, cost_reg, samples), "depth_values": samples}
 
             # pass 2: 4-plane checkerboard refine on the "_c" features
             dv_c = stage_out["depth_values_c"]
-            cost_reg_c, engaged_c = cost_pass(stage + "_c", dv_c,
-                                              self.cost_regularization_refine[s],
-                                              self.epipolar_refine_stages,
-                                              self.agg_weight_refine[s] if adaptive else None)
+            cost_c, engaged_c = cost_volume(stage + "_c", dv_c, self.epipolar_refine_stages,
+                                            self.agg_weight_refine[s] if adaptive else None)
+            if frac <= 0.85:
+                outputs["partial"] = cost_c
+                break
+            cost_reg_c = regularize(cost_c, self.cost_regularization_refine[s])
+            if frac <= 0.95:
+                outputs["partial"] = cost_reg_c
+                break
             refine_out = head(depth_net.refine, cost_reg_c, dv_c)
             if engaged is not None:
                 refine_out["sweep_engaged"] = engaged
@@ -266,6 +298,8 @@ class MVSNet(nn.Module):
             last_depth = stage_out["depth"]
             outputs[stage] = stage_out
             outputs.update(stage_out)
+            if self.run_stages and s + 1 >= self.run_stages:
+                break
         return outputs
 
     def _remat(self, fn, *args):

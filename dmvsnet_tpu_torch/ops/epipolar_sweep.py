@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import torch
 
-from dmvsnet_tpu_torch.core import epipolar, geometry
+from dmvsnet_tpu_torch.core import epipolar
 from dmvsnet_tpu_torch.ops import cuda_build, warp, warp_correlate
 
 # rectification sanity bounds: the scale factors of the similarity fits must
@@ -343,20 +343,24 @@ def aggregate_cost_volume_epipolar(
     Returns:
       (cost (B, D, H, W, 2) fp32, views summed in order 1..V-1;
        engaged (B, V-1) bool on the CPU: which pairs took the sweep).
+
+    A cost counter counts the whole call as the exact pass it replaces
+    (``warp_correlate.counted_pass``).
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (feats, proj2, depth_values)):
         raise RuntimeError(
             "the epipolar sweep has no gradient (eval-time only): run it under "
             "torch.no_grad() / inference_mode, or train with warp_impl='cuda'")
+    return warp_correlate.counted_pass(
+        _epipolar_pass, *warp_correlate.pass_inputs(feats, proj2, depth_values))
+
+
+def _epipolar_pass(feats: torch.Tensor, rel: torch.Tensor, dv: torch.Tensor):
+    """aggregate_cost_volume_epipolar on fp32 (B, V, H, W, C) features,
+    (B, V-1, 3, 4) relative projections and (B, D, H, W) hypotheses."""
     b, v, h, w, c = feats.shape
     nv = v - 1
-    feats = feats.float().contiguous()
-    dv = depth_values.float()
-    if dv.dim() == 2:
-        dv = dv[:, :, None, None].expand(b, dv.shape[1], h, w)
-    dv = dv.contiguous()
     dpl = dv.shape[1]
-    rel = geometry.relative_projections(proj2)               # (B, V-1, 3, 4)
 
     engaged = torch.zeros((b, nv), dtype=torch.bool)
     if _supported(dpl, h, w, c):

@@ -30,6 +30,13 @@ The kernels are declared here and built at first use by
 The wrappers take the plain versions only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises.
 
+Every cost pass of the model goes through ``counted_pass``: while a cost
+counter is active (``COUNTER``, installed by
+``engine/profiler.cost_analysis``) the pass reports one canonical count,
+``pass_cost`` forward and ``adjoint_cost`` with every tap backward, whatever
+computes it (kernel or plain version, the epipolar sweep, one call per view
+pair), and the aten ops inside it are not counted on top.
+
 The kernels are fp32 end to end.  The cost-pass entries
 (``aggregate_cost_volume``, its view-sharded and adaptive forms) upcast
 bf16 features to fp32 before the kernel, as the JAX package's Pallas
@@ -62,6 +69,97 @@ LAUNCHES: dict[str, int] = cuda_build.declare({
     "warp_correlate_grad_src": ("warp_correlate_grad_src.cu", cuda_build.pointer_ints(6, 6),
                                 _GEOMETRY),
 })
+
+
+# The active cost counter, or None: an object with ``add(kind, nbytes,
+# flops)`` and a context manager ``suspend()`` inside which it counts no aten op
+# (engine/profiler.cost_analysis installs one for the call it counts).
+COUNTER = None
+
+
+def pass_cost(b: int, v: int, d: int, h: int, w: int, c: int) -> tuple[int, int]:
+    """Least bytes (each input read once, the output written once) and fp32
+    operations (10*C + 20 per pixel, plane and source view) of one cost pass
+    on (B, V, H, W, C) features and D planes."""
+    nbytes = 4 * (b * d * h * w + b * d * h * w * 2 + b * v * h * w * c + b * (v - 1) * 12)
+    flops = b * d * h * w * (v - 1) * (10 * c + 20)
+    return nbytes, flops
+
+
+def adjoint_cost(b: int, v: int, d: int, h: int, w: int, c: int,
+                 taps: int | None = None) -> dict[str, tuple[int, int]]:
+    """Least bytes and fp32 operations of each adjoint kernel for one pass.
+    Both read depth and the cotangent pair and the projections once.
+    grad_ref: reads the source features, writes the reference gradient;
+    8*C + 20 operations per (pixel, plane, view) (4 taps x C multiply-adds,
+    the geometry) and 2*C per (pixel, plane) for the cotangent.
+    grad_src: reads the reference features, writes the source gradient;
+    2*C operations per (pixel, plane), 20 per (pixel, plane, view) and 2*C
+    per tap added.  ``taps`` is the taps with a nonzero weight that given
+    inputs really add; None counts every tap, 4 per (pixel, plane, source
+    view), which is what the plain version computes and what a cost
+    counter counts."""
+    if taps is None:
+        taps = 4 * b * d * h * w * (v - 1)
+    shared = b * d * h * w * 3 + b * (v - 1) * 12
+    return {
+        "warp_correlate_grad_ref": (
+            4 * (shared + b * (v - 1) * h * w * c + b * h * w * c),
+            b * d * h * w * ((v - 1) * (8 * c + 20) + 2 * c)),
+        "warp_correlate_grad_src": (
+            4 * (shared + b * h * w * c + b * (v - 1) * h * w * c),
+            b * d * h * w * (2 * c + (v - 1) * 20) + taps * 2 * c),
+    }
+
+
+def _pass_shape(feats: torch.Tensor, depth: torch.Tensor) -> tuple[int, ...]:
+    b, v, h, w, c = feats.shape
+    return b, v, depth.shape[1], h, w, c
+
+
+def counted_pass(fn, feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor):
+    """``fn(feats, rel, depth)``: one cost pass on (B, V, H, W, C) fp32
+    features, (B, V-1, 3, 4) projections and (B, D, H, W) hypotheses.  With
+    no active counter that is all it does.  Under one, the pass runs with
+    the counter suspended and reports ``pass_cost`` once; where ``feats``
+    needs a gradient its backward (``warp_correlate_grad``, or
+    ``warp_correlate_grad_plain`` when ``fn`` is the plain version) reports
+    both ``adjoint_cost``s with every tap."""
+    counter = COUNTER
+    if counter is None:
+        return fn(feats, rel, depth)
+    if torch.is_grad_enabled() and feats.requires_grad:
+        return _CountedPass.apply(fn, counter, feats, rel, depth)
+    with counter.suspend():
+        out = fn(feats, rel, depth)
+    counter.add("cost_pass", *pass_cost(*_pass_shape(feats, depth)))
+    return out
+
+
+class _CountedPass(torch.autograd.Function):
+    """A counted cost pass whose features need a gradient: forward and
+    backward each run the pass's own code with the counter suspended and
+    report their count once."""
+
+    @staticmethod
+    def forward(ctx, fn, counter, feats, rel, depth):
+        with counter.suspend():
+            out = fn(feats, rel, depth)
+        counter.add("cost_pass", *pass_cost(*_pass_shape(feats, depth)))
+        ctx.fn, ctx.counter = fn, counter
+        ctx.save_for_backward(feats, rel, depth)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, cot):
+        feats, rel, depth = ctx.saved_tensors
+        grad_fn = warp_correlate_grad_plain if ctx.fn is warp_correlate_plain else warp_correlate_grad
+        with ctx.counter.suspend():
+            grad = grad_fn(feats, rel, depth, cot.contiguous())
+        for cost in adjoint_cost(*_pass_shape(feats, depth)).values():
+            ctx.counter.add("cost_pass_adjoint", *cost)
+        return None, None, grad, None, None
 
 
 def warp_correlate_plain(
@@ -282,10 +380,10 @@ def aggregate_cost_volume(
       (B, D, H, W, 2) fp32.  Differentiable w.r.t. ``feats`` only.
     """
     fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
-    return fn(*_pass_inputs(feats, proj2, depth_values))
+    return counted_pass(fn, *pass_inputs(feats, proj2, depth_values))
 
 
-def _pass_inputs(feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor):
+def pass_inputs(feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor):
     """fp32 contiguous features (upcast from bf16), relative projections,
     (B, D, H, W) hypotheses."""
     b, _, h, w, _ = feats.shape
@@ -315,10 +413,10 @@ def aggregate_cost_volume_adaptive(
       ``weight_fn`` holds.
     """
     fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
-    feats, rel, dv = _pass_inputs(feats, proj2, depth_values)
+    feats, rel, dv = pass_inputs(feats, proj2, depth_values)
     total = None
     for i in range(1, feats.shape[1]):
-        corr = fn(feats[:, [0, i]], rel[:, i - 1:i].contiguous(), dv)
+        corr = counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), dv)
         corr = corr * torch.sigmoid(weight_fn(corr).float())
         total = corr if total is None else total + corr
     return total
