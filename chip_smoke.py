@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--grad-trials N]
 
 (``--rank-task`` / ``--task-dir`` are for the ranks the script starts
-itself under torchrun in phases 16-18 and 23.)
+itself under torchrun in phases 16-18, 23 and 25.)
 
 ``--grad-trials N`` repeats the gradient comparison of phase 6 on N freshly
 seeded sets of weights and prints it, to show its spread; nothing is held
@@ -177,12 +177,34 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    against 67 TFLOP/s and 3.35 TB/s; a torch.profiler trace of one forward,
    which must name kernel 1 six times; phase 5's run_test line, which must
    have appeared once with this phase's count;
-25. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+25. "fold", the folded level-0 plan (models/folded.py, MVSNet.fold_level0)
+   against the unfolded one, every row with the card's name and power
+   limit.  Eval, on phase 5's batch and weights, one model toggled between
+   the plans: depth and confidence folded against unfolded (0.05 mm, 1e-3;
+   mean / p99 / max beside NUMERICS.json "tol"), ms per map and peak memory
+   under each, 6 kernel-1 launches under each, 37 folded convolutions per
+   forward under True (the stage-3 main and the three refine passes x 2
+   branches x 4, and 5 in the feature net; the stage-1 and stage-2 main
+   passes declined by the shape rule, 4 branches) and none under None; a
+   "fold_pass" row per (stage, pass) timing that pass's cost U-Net on the
+   model's own cost volume unfolded and folded (folded also where the rule
+   declines it); the feature net's ms under each plan.  Train: one dtu_train
+   step from phase 6's weights on its validation batch under deterministic
+   cuDNN, fold on against off (LOSS_RTOL, PATH_GRAD_RTOL beside phase 6's
+   yardstick, STAT_RTOL), 6 + 6 + 6 launches, ms per step and peak memory
+   under each.  bf16: one forward at --costreg_dtype bfloat16 with fold on
+   against phase 5's fp32 maps (NUMERICS.json "tol"), beside phase 19's
+   unfolded difference.  sp: one sp = 2 eval forward with fold on
+   (``--rank-task spfold``) against the one-process folded forward (phase
+   23's bounds).  Cost: phase 24's counts (a map, a train step) under the
+   folded plan, equal to the unfolded counts;
+26. a "phases" line (wall seconds of each phase), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
    inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
    on each recipe path and "recipe_model_ms" on the recipes' tensors;
    launches on the dp, vp and sp paths and "vp_model_ms"; launches on the
-   model options' paths and "bf16_eval_model_ms"; the scatter's atomic
+   model options' and the folded plan's paths and "bf16_eval_model_ms"; the
+   scatter's atomic
    adds), the card line, and the final {"ok": true, "device": {...}} line.
 
 A rank that fails or outlives RANKS_TIMEOUT_S fails its phase; torchrun
@@ -229,7 +251,7 @@ from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG
 from dmvsnet_tpu_torch.fusion.dtu_eval import eval_scan
 from dmvsnet_tpu_torch.fusion.ply import read_ply
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
-from dmvsnet_tpu_torch.models import mvsnet
+from dmvsnet_tpu_torch.models import folded, mvsnet
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
@@ -302,6 +324,12 @@ RECIPE_INPUTS = ("model gate", "model tank", "model blendedmvs")
 # (torchrun's, killed at RANKS_TIMEOUT_S), and the running statistics' bound
 # of tests/test_torch_train_step.py (1e-4 * max(1, max|stat|))
 GLOO_RANKS, RANKS_TIMEOUT_S, STAT_RTOL = 2, 300.0, 1e-4
+# phase 25: folded convolutions of one dtu_test forward under fold_level0=True
+# (the stage-3 main pass and the three refine passes fold: 4 passes x 2
+# branches x 4 convolutions, plus 5 in the feature net) and the U-Net
+# branches the shape rule declines (the stage-1 and stage-2 main passes,
+# 48 and 32 planes: 2 x 2)
+FOLDED_CONVS, FOLDED_DECLINED = 4 * 2 * 4 + 5, 4
 
 
 def card_line() -> str:
@@ -1931,7 +1959,8 @@ def run_ranks(args: list[str], n: int, timeout_s: float = RANKS_TIMEOUT_S) -> st
 def rank_worker(task: str, task_dir: str) -> None:
     """A rank of phase 16 ("cli": cli.main under torchrun, nccl), of phases
     17-18 ("gloo": the dp step, the vp forward and the vp step, two ranks on
-    the one card over gloo) or of phase 23 ("sp", "dpsp": ``sp_rank``).
+    the one card over gloo), of phase 23 ("sp", "dpsp": ``sp_rank``) or of
+    phase 25 ("spfold": ``sp_forward`` under the folded plan).
     Writes its results to task_dir."""
     with open(os.path.join(task_dir, "task.json")) as f:
         spec = json.load(f)
@@ -1949,8 +1978,9 @@ def rank_worker(task: str, task_dir: str) -> None:
     info = init_multihost("cuda", backend="gloo", timeout_s=RANKS_TIMEOUT_S)
     rank = info["process_index"]
     out = dict(init=info, backend=dist.get_backend())
-    if task in ("sp", "dpsp"):
-        out.update(sp_rank(task, spec, task_dir, rank))
+    if task in ("sp", "dpsp", "spfold"):
+        out.update(sp_rank(task, spec, task_dir, rank) if task != "spfold"
+                   else {"forward": sp_forward(spec, resolve_device())})
         torch.save(out, os.path.join(task_dir, f"rank{rank}.pt"))
         dist.barrier()
         dist.destroy_process_group()
@@ -2149,6 +2179,42 @@ def gloo_ranks(dev, tmp: str, train_argv: list[str], test_argv: list[str],
             torch.load(os.path.join(d, "vp_passes.pt"), weights_only=False))
 
 
+def sp_forward(spec: dict, dev) -> dict:
+    """The dtu_test forward of a rank on phase 5's scene and weights with
+    the rows split over sp = 2 (with the plan ``spec["fold_level0"]``, None
+    where absent): launches, maps on the host, unsplit passes, folded
+    convolutions, peak memory, all_reduce calls and bytes, synced ms."""
+    t0 = time.perf_counter()
+    mesh = make_mesh(n_data=1, n_spatial=2, device=dev)
+    test_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["test_argv"]))
+    model = replicate_tree(build_train_model(test_cfg, dev, mesh).eval())
+    model.fold_level0 = spec.get("fold_level0")
+    imgs, proj, dv = load_batch(test_cfg, dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(imgs, proj, dv)
+
+    cuda_build.reset_launches()
+    spatial.stats["unsplit_passes"] = 0
+    before = dict(folded.stats)
+    torch.cuda.reset_peak_memory_stats()
+    with counting_all_reduce() as reduced:
+        o = forward()
+        torch.cuda.synchronize()
+    out = dict(launches=cuda_build.launches(), depth=o["depth"].cpu(),
+               conf=o["photometric_confidence"].cpu(),
+               unsplit_passes=spatial.stats["unsplit_passes"],
+               folded={k: v - before[k] for k, v in folded.stats.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               all_reduce=dict(calls=reduced["calls"], bytes=reduced["bytes"],
+                               by_label=reduced["by_label"]))
+    del o
+    out["ms_per_forward"] = synced_ms(forward)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def sp_rank(task: str, spec: dict, task_dir: str, rank: int) -> dict:
     """A rank of phase 23 on the one card over gloo.  "sp" (2 ranks): the
     dtu_test forward on phase 5's scene and weights with the rows split over
@@ -2160,33 +2226,7 @@ def sp_rank(task: str, spec: dict, task_dir: str, rank: int) -> dict:
     out = {}
     train_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["train_argv"]))
     if task == "sp":
-        t0 = time.perf_counter()
-        mesh = make_mesh(n_data=1, n_spatial=2, device=dev)
-        test_cfg = cli.config_from_args(cli.build_parser().parse_args(spec["test_argv"]))
-        model = replicate_tree(build_train_model(test_cfg, dev, mesh).eval())
-        imgs, proj, dv = load_batch(test_cfg, dev)
-
-        def forward():
-            with torch.inference_mode():
-                return model(imgs, proj, dv)
-
-        cuda_build.reset_launches()
-        spatial.stats["unsplit_passes"] = 0
-        torch.cuda.reset_peak_memory_stats()
-        with counting_all_reduce() as reduced:
-            o = forward()
-            torch.cuda.synchronize()
-        out["forward"] = dict(
-            launches=cuda_build.launches(), depth=o["depth"].cpu(),
-            conf=o["photometric_confidence"].cpu(),
-            unsplit_passes=spatial.stats["unsplit_passes"],
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            all_reduce=dict(calls=reduced["calls"], bytes=reduced["bytes"],
-                            by_label=reduced["by_label"]))
-        del o
-        out["forward"]["ms_per_forward"] = synced_ms(forward)
-        out["forward"]["seconds"] = time.perf_counter() - t0
-        del model, imgs, proj, dv
+        out["forward"] = sp_forward(spec, dev)
         torch.cuda.empty_cache()
         meshes = dict(mesh_spatial=2)
     else:
@@ -2493,6 +2533,247 @@ def cost_phase(dev, tmp: str, eval_main: dict, eval_line: dict, train: dict) -> 
         trace_kernel_ms={k: sum(v) for k, v in traced.items()})
 
 
+def _fold_diffs(got_depth, want_depth, got_conf, want_conf) -> dict:
+    """|depth| (mm: mean, p99 over every 7th pixel, max) and |confidence|
+    (max) differences of two maps on the host."""
+    d = (got_depth.double() - want_depth.double()).abs()
+    return dict(depth_mean_mm=float(d.mean()),
+                depth_p99_mm=float(torch.quantile(d.flatten()[::7], 0.99)),
+                depth_max_mm=float(d.max()),
+                conf_max_abs_diff=float((got_conf.double() - want_conf.double()).abs().max()))
+
+
+def fold_eval(model, imgs, proj, dv, card: str) -> tuple[dict, list[dict], dict]:
+    """Phase 25's eval rows on one model toggled between the plans: maps,
+    launches, folded convolutions, ms per map, peak memory; one row per
+    (stage, pass) timing its cost U-Net on the model's own cost volume under
+    each plan (a pass the shape rule declines is also timed forced folded);
+    the feature net's ms under each plan.  Returns (eval row, pass rows,
+    the folded maps on the host)."""
+    captured = {}
+    hooks = [model.feature.register_forward_pre_hook(
+        lambda m, a: captured.setdefault("feature", a[0]))]
+    for s in range(len(NDEPTHS)):
+        for name, reg in ((f"s{s + 1} main", model.cost_regularization[s]),
+                          (f"s{s + 1} refine", model.cost_regularization_refine[s])):
+            hooks.append(reg.register_forward_pre_hook(
+                lambda m, a, k=name: captured.setdefault(k, a[0])))
+    runs = {}
+    for plan in (False, True, None):
+        model.fold_level0 = plan
+        cuda_build.reset_launches()
+        before = dict(folded.stats)
+        with torch.inference_mode():
+            o = model(imgs, proj, dv)
+        torch.cuda.synchronize()
+        runs[plan] = dict(depth=o["depth"].cpu(), conf=o["photometric_confidence"].cpu(),
+                          launches=cuda_build.launches(),
+                          folded={k: v - before[k] for k, v in folded.stats.items()})
+        while hooks:   # the inputs of the first (unfolded) forward
+            hooks.pop().remove()
+        expect_launches(f"fold eval ({plan})", runs[plan]["launches"], warp_correlate=6)
+    want_folded = {True: dict(convolutions=FOLDED_CONVS, declined=FOLDED_DECLINED),
+                   None: dict(convolutions=0, declined=0)}
+    for plan, want in want_folded.items():
+        if runs[plan]["folded"] != want:
+            raise AssertionError(f"fold eval ({plan}): folded {runs[plan]['folded']}, "
+                                 f"expected {want}")
+    diffs = _fold_diffs(runs[True]["depth"], runs[False]["depth"], runs[True]["conf"],
+                        runs[False]["conf"])
+    if not (diffs["depth_max_mm"] <= 0.05 and diffs["conf_max_abs_diff"] <= 1e-3):
+        raise AssertionError(f"fold eval: folded against unfolded {diffs}")
+    timing = {}
+    for plan in (False, True):
+        model.fold_level0 = plan
+        timing[plan] = forward_timing(model, imgs, proj, dv)
+
+    def unet(reg, x, plan: str):
+        """The U-Net's two branches on ``x`` in the plan (folded also where
+        the shape rule would decline it)."""
+        def call():
+            with torch.inference_mode():
+                return torch.cat([getattr(b, plan)(x) for b in (reg.cosR_small, reg.cosR_huge)],
+                                 1)
+        return call
+
+    rows = []
+    for s in range(len(NDEPTHS)):
+        for name, reg in ((f"s{s + 1} main", model.cost_regularization[s]),
+                          (f"s{s + 1} refine", model.cost_regularization_refine[s])):
+            x = captured[name]
+            call_u, call_f = unet(reg, x, "_unfolded"), unet(reg, x, "_folded")
+            ms_u, ms_f = time_ms(call_u, 5), time_ms(call_f, 5)
+            err = float((call_f().float() - call_u().float()).abs().max())
+            rows.append(dict(pass_name=name, shape_bcdhw=list(x.shape),
+                             folds=folded.use_folded_level0(x),
+                             folded_channels=x.shape[1] * x.shape[2] * 4,
+                             unfolded_ms=ms_u, folded_ms=ms_f,
+                             folded_over_unfolded=ms_f / ms_u, max_abs_diff=err, card=card))
+    feature_ms = {}
+    for plan in (False, True):
+        model.feature.fold_level0 = plan
+
+        def feature():
+            with torch.inference_mode():
+                return model.feature(captured["feature"])
+        feature_ms["folded" if plan else "unfolded"] = time_ms(feature, 5)
+    model.fold_level0 = None
+    row = dict(batch=B, maps_folded_vs_unfolded=diffs,
+               bounds=dict(depth_max_mm=0.05, conf_max=1e-3),
+               numerics_tol=dict(mean_mm=0.2, p99_mm=2.0, max_mm=10.0),
+               launches={str(k): r["launches"] for k, r in runs.items()},
+               folded_per_forward={str(k): r["folded"] for k, r in runs.items()},
+               ms_per_map_unfolded=timing[False]["ms_per_map"],
+               ms_per_map_folded=timing[True]["ms_per_map"],
+               peak_mem_gb_unfolded=timing[False]["peak_mem_gb"],
+               peak_mem_gb_folded=timing[True]["peak_mem_gb"],
+               feature_net_ms=feature_ms,
+               unet_ms_sum={"unfolded": sum(r["unfolded_ms"] for r in rows),
+                            "folded_where_the_rule_folds": sum(
+                                r["folded_ms"] if r["folds"] else r["unfolded_ms"] for r in rows)},
+               card=card)
+    return row, rows, runs[True]
+
+
+def fold_phase(dev, tmp: str, train: dict, bf16e: dict, cost: dict) -> dict:
+    """Phase 25, "fold": the folded level-0 plan (models/folded.py) against
+    the unfolded one on the card.  Eval (``fold_eval``) on phase 5's batch
+    and weights; one dtu_train step from phase 6's weights on its
+    validation batch under deterministic cuDNN with fold on against fold off
+    (LOSS_RTOL, PATH_GRAD_RTOL beside phase 6's yardstick, STAT_RTOL), 6 +
+    6 + 6 launches, ms per step and peak memory under each; one forward at
+    --costreg_dtype bfloat16 with fold on against phase 5's fp32 maps
+    (BF16_TOL) beside phase 19's unfolded bf16 difference; one sp = 2 eval
+    forward with fold on (``--rank-task spfold``) against the one-process
+    folded forward (phase 23's bounds); phase 24's counts under the folded
+    plan.  Every row carries the card's name and power limit."""
+    card = card_line()
+    out = {}
+    cfg = cli.config_from_args(cli.build_parser().parse_args(eval_argv(tmp)))
+    model = build_model(cfg, dev)
+    imgs, proj, dv = load_batch(cfg, dev)
+    t0 = time.perf_counter()
+    out["eval"], out["passes"], folded_maps = fold_eval(model, imgs, proj, dv, card)
+    out["eval"]["seconds"] = time.perf_counter() - t0
+
+    # phase 24's count under the folded plan
+    t0 = time.perf_counter()
+    model.fold_level0 = True
+    counted = profiler.model_summary(model, imgs, proj, dv)
+    model.fold_level0 = None
+    del model
+    tcfg, sd, batch = option_inputs(dev, tmp, train["checkpoint"])
+    net = train_model(tcfg, sd, dev)
+    net.fold_level0 = True
+    optimizer, scheduler = make_optimizer(net.parameters(), lambda i: 0.0)
+    step_count = profiler.cost_breakdown(make_train_step(tuple(tcfg.dlossw), tcfg.depth_mode),
+                                         net, optimizer, scheduler, batch)
+    del net, optimizer, scheduler
+    step_flops = sum(step_count["flops"].values())
+    step_bytes = sum(step_count["bytes_accessed"].values())
+    out["cost"] = dict(flops_per_map=counted["flops"] / B,
+                       bytes_per_map=counted["bytes_accessed"] / B,
+                       flops_per_step=step_flops, bytes_per_step=step_bytes,
+                       equal_to_phase_24=True, card=card,
+                       seconds=time.perf_counter() - t0)
+    if (counted["flops"] / B, counted["bytes_accessed"] / B, step_flops, step_bytes) != (
+            cost["flops_per_map"], cost["bytes_per_map"], cost["flops_per_step"],
+            cost["bytes_per_step"]):
+        raise AssertionError(f"fold cost: {out['cost']} against phase 24's {cost}")
+
+    # one train step, fold on against fold off
+    t0 = time.perf_counter()
+    runs = {}
+    for plan in (False, True):
+        net = train_model(tcfg, sd, dev)
+        net.fold_level0 = plan
+        runs[plan] = dict(step_grads(net, tcfg, batch), **step_timing(net, tcfg, batch))
+        expect_launches(f"fold step ({plan})", runs[plan]["launches"], warp_correlate=6,
+                        warp_correlate_grad_ref=6, warp_correlate_grad_src=6)
+        del net
+    off, on = runs[False], runs[True]
+    loss_rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    grads = grad_diff(on["grads"], off["grads"])
+    stat_err = max(float((on["state"][k].double() - v.double()).abs().max())
+                   / max(1.0, float(v.abs().max()))
+                   for k, v in off["state"].items() if ".running_" in k)
+    tracked_equal = all(torch.equal(on["state"][k], v) for k, v in off["state"].items()
+                        if k.endswith("num_batches_tracked"))
+    out["train"] = dict(loss_unfolded=off["loss"], loss_folded=on["loss"], loss_rel_diff=loss_rel,
+                        grad_rel_l2_diff=grads, grad_bounds=PATH_GRAD_RTOL,
+                        grad_rel_l2_diff_yardstick_phase_6=train["grad_rel_l2_diff_yardstick"],
+                        stat_rel_diff=stat_err, stat_bound=STAT_RTOL,
+                        launches=on["launches"], ms_per_step_unfolded=off["ms_per_step"],
+                        ms_per_step_folded=on["ms_per_step"],
+                        peak_mem_gb_unfolded=off["peak_mem_gb"],
+                        peak_mem_gb_folded=on["peak_mem_gb"], card=card,
+                        seconds=time.perf_counter() - t0)
+    if not (np.isfinite(on["loss"]) and loss_rel <= LOSS_RTOL and stat_err <= STAT_RTOL
+            and tracked_equal
+            and all(np.isfinite(grads[k]) and grads[k] <= t for k, t in PATH_GRAD_RTOL.items())):
+        raise AssertionError(f"fold step against unfolded step: {out['train']}")
+    del runs, batch
+    torch.cuda.empty_cache()
+
+    # bf16 cost U-Nets, folded, against phase 5's fp32 maps
+    t0 = time.perf_counter()
+    bcfg = cli.config_from_args(cli.build_parser().parse_args(
+        eval_argv(tmp) + ["--costreg_dtype", "bfloat16"]))
+    model = build_model(bcfg, dev)
+    model.fold_level0 = True
+    with torch.inference_mode():
+        o = model(imgs, proj, dv)
+    want = [torch.from_numpy(np.stack([io.read_pfm(os.path.join(tmp, "out", "scan1", kind,
+                                                               f"{v:08d}.pfm"))[0]
+                                       for v in range(B)]).astype(np.float32))
+            for kind in ("depth_est", "confidence")]
+    diffs = _fold_diffs(o["depth"].cpu(), want[0], o["photometric_confidence"].cpu(), want[1])
+    conf_mean = float((o["photometric_confidence"].cpu() - want[1]).abs().mean())
+    out["bf16"] = dict(costreg_dtype="bfloat16", against_phase_5_fp32_maps=diffs,
+                       conf_mean=conf_mean, tol=BF16_TOL,
+                       phase_19_unfolded_nets={k: bf16e["nets"][k] for k in (
+                           "depth_mean_mm", "depth_p99_mm", "depth_max_mm", "conf_mean")},
+                       card=card, seconds=time.perf_counter() - t0)
+    if not (diffs["depth_mean_mm"] <= BF16_TOL["mean_mm"]
+            and diffs["depth_p99_mm"] <= BF16_TOL["p99_mm"]
+            and diffs["depth_max_mm"] <= BF16_TOL["max_mm"]
+            and conf_mean <= BF16_TOL["conf_mean"]):
+        raise AssertionError(f"fold bf16 against fp32: {out['bf16']}")
+    del model, o, imgs, proj, dv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # sp = 2 with the folded plan, against the one-process folded forward
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "sp_fold")
+    os.makedirs(d)
+    with open(os.path.join(d, "task.json"), "w") as f:
+        json.dump(dict(test_argv=eval_argv(tmp), fold_level0=True), f)
+    run_ranks(["chip_smoke.py", "--rank-task", "spfold", "--task-dir", d], 2)
+    fwd = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)["forward"]
+           for r in range(2)]
+    per_rank = [_fold_diffs(f["depth"], folded_maps["depth"], f["conf"], folded_maps["conf"])
+                for f in fwd]
+    for i, f in enumerate(fwd):
+        expect_launches(f"fold sp forward rank {i}", f["launches"], warp_correlate=6)
+    out["sp"] = dict(against_one_process_folded=per_rank, bounds=dict(depth_max_mm=0.05,
+                                                                      conf_max=1e-3),
+                     unsplit_passes=[f["unsplit_passes"] for f in fwd],
+                     folded_per_rank=[f["folded"] for f in fwd],
+                     launches_per_rank=[f["launches"] for f in fwd],
+                     all_reduce_rank0=fwd[0]["all_reduce"],
+                     peak_mem_gb_per_rank=[f["peak_mem_gb"] for f in fwd],
+                     ms_per_forward_2_ranks_sharing_one_card_over_gloo=[
+                         f["ms_per_forward"] for f in fwd],
+                     card=card, seconds=time.perf_counter() - t0)
+    if not (all(r["depth_max_mm"] <= 0.05 and r["conf_max_abs_diff"] <= 1e-3 for r in per_rank)
+            and all(f["unsplit_passes"] == 0 for f in fwd)
+            and all(f["folded"] == dict(convolutions=FOLDED_CONVS, declined=FOLDED_DECLINED)
+                    for f in fwd)):
+        raise AssertionError(f"fold sp forward against one process: {out['sp']}")
+    return out
+
+
 def report(every: list[dict], eval_launches, train_launches, epi_launches,
            fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict],
            options: dict[str, dict]) -> None:
@@ -2500,7 +2781,8 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
     and model inputs; ``recipes`` are the launch counts of each recipe path
     of phases 11-15, each read just after the path ran from counts at 0;
     ``parallel`` those of phases 16-18 and 23 (per rank on the gloo paths);
-    ``options`` those of the model options' paths, phases 19-22."""
+    ``options`` those of the model options' paths, phases 19-22, and of the
+    folded plan's, phase 25."""
 
     def rows_of(kernel, inputs, cameras="translate"):
         return [r for r in every if r.get("kernel", "warp_correlate") == kernel
@@ -2551,7 +2833,8 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
     # pass) or one backward (train shapes) on the smoke's synthetic inputs;
     # vp_model_ms kernel 1 on rank 0's six passes of the vp forward (phase 18);
     # bf16_eval_model_ms kernel 1 on the six passes of one bf16 dtu_test batch
-    # (phase 19, the features upcast); option_launches those of phases 19-22;
+    # (phase 19, the features upcast); option_launches those of phases 19-22
+    # and 25;
     # model_ms the same on the inputs of one dtu_test batch (kernel 1), one
     # dtu_train step (kernels 2 and 3) or one dtu_test batch of the epipolar
     # model with all six passes routed (kernels 4 and 5); recipe_model_ms
@@ -2588,8 +2871,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--grad-trials", type=int, default=0,
                         help="fresh sets of weights to repeat the gradient comparison on")
-    parser.add_argument("--rank-task", choices=["cli", "gloo", "sp", "dpsp"],
-                        help="run as a rank of phase 16, 17-18 or 23 (the script starts "
+    parser.add_argument("--rank-task", choices=["cli", "gloo", "sp", "dpsp", "spfold"],
+                        help="run as a rank of phase 16, 17-18, 23 or 25 (the script starts "
                              "these itself under torchrun)")
     parser.add_argument("--task-dir", help="where a rank reads its task and writes its results")
     args = parser.parse_args()
@@ -2757,6 +3040,15 @@ def main() -> None:
         cost = timed("cost", cost_phase, dev, tmp, eval_main, eval_line, train)
         print("cost " + json.dumps(cost), flush=True)
 
+        # the folded level-0 plan against the unfolded one
+        gc.collect()
+        torch.cuda.empty_cache()
+        fold = timed("fold", fold_phase, dev, tmp, train, bf16e, cost)
+        for row in fold["passes"]:
+            print("fold_pass " + json.dumps(row), flush=True)
+        for key in ("eval", "train", "bf16", "sp", "cost"):
+            print(f"fold_{key} " + json.dumps(fold[key]), flush=True)
+
     print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
           flush=True)
     report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
@@ -2775,7 +3067,9 @@ def main() -> None:
                 bf16_eval_compute=bf16e["compute"]["launches"],
                 bf16_train_step=bf16t["launches"], remat_step=remat["launches"]["remat"],
                 no_remat_step=remat["launches"]["no_remat"],
-                adaptive_eval=adaptive["cli_launches"], adaptive_step=adaptive["step_launches"]))
+                adaptive_eval=adaptive["cli_launches"], adaptive_step=adaptive["step_launches"],
+                fold_eval=fold["eval"]["launches"]["True"], fold_step=fold["train"]["launches"],
+                fold_sp_forward_rank0=fold["sp"]["launches_per_rank"][0]))
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,9 @@
 
 Both take the model options of the CLI: ``--compute_dtype``,
 ``--costreg_dtype``, ``--feature_dtype`` (auto | float32 | bfloat16),
-``--agg_mode`` (variance | adaptive) and, with ``--train``, ``--remat``.
+``--agg_mode`` (variance | adaptive) and, with ``--train``, ``--remat``;
+and ``--fold``, which runs the folded level-0 plan
+(``MVSNet.fold_level0 = True``, ``models/folded.py``).
 
 Builds the DTU-eval MVSNet (864x1152, 5 views, ndepths 48/32/8, inverse
 depth, seeded random weights) on CUDA and times one batch forward with
@@ -428,6 +430,7 @@ def _options(args) -> dict:
 def main_train(args, device) -> None:
     cfg = preset("dtu_train", remat=args.remat, **_options(args))
     model = build_train_model(cfg, device)
+    model.fold_level0 = True if args.fold else None
     optimizer, scheduler = make_optimizer(
         model.parameters(), make_lr_schedule(cfg.lr, 1, cfg.scheduler, cfg.warmup,
                                              cfg.milestones, cfg.lr_decay, cfg.epochs), cfg.wd)
@@ -439,7 +442,7 @@ def main_train(args, device) -> None:
     peak = torch.cuda.max_memory_allocated()
     print("train_breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
-        **_options(args), tf32=args.tf32,
+        **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
         cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9, ms=times)), flush=True)
     print(_profiled(step), flush=True)
 
@@ -454,6 +457,8 @@ def main(argv=None) -> None:
         p.add_argument(f"--{name}", default="auto", choices=["auto", "float32", "bfloat16"])
     p.add_argument("--agg_mode", default="variance", choices=["variance", "adaptive"])
     p.add_argument("--remat", action="store_true", help="with --train: rematerialise")
+    p.add_argument("--fold", action="store_true",
+                   help="run the folded level-0 plan (fold_level0=True)")
     p.add_argument("--tf32", action="store_true", help="measure with TF32 convolutions")
     p.add_argument("--cudnn-benchmark", action="store_true",
                    help="measure with cuDNN's algorithm search")
@@ -468,6 +473,7 @@ def main(argv=None) -> None:
     cfg = preset("dtu_test", filter_method="none", eval_batch=args.batch,
                  warp_impl=args.warp_impl, **_options(args))
     model = build_train_model(cfg, device).eval()
+    model.fold_level0 = True if args.fold else None
     inputs = synthetic_inputs(cfg, args.batch, device)
     times = breakdown(model, inputs)
     torch.cuda.reset_peak_memory_stats()
@@ -476,8 +482,8 @@ def main(argv=None) -> None:
     peak = torch.cuda.max_memory_allocated()
     print("breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
-        **_options(args), tf32=args.tf32, cudnn_benchmark=args.cudnn_benchmark,
-        peak_mem_gb=peak / 1e9,
+        **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
+        cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9,
         ms_per_map=times["forward"] / args.batch, ms=times)), flush=True)
     print(kernel_table(model, inputs), flush=True)
 

@@ -68,6 +68,12 @@ def _recompute():
         _recomputing.active = False
 
 
+def recomputing() -> bool:
+    """True while ``checkpoint`` recomputes a forward in this thread: a
+    batch norm then updates no running statistic."""
+    return getattr(_recomputing, "active", False)
+
+
 def checkpoint(fn, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): only
     the inputs are kept, and the backward runs ``fn`` again.  During that
@@ -106,10 +112,10 @@ class _BiasedRunningVar:
         m = self.momentum
         var = self.running_var.clone()
         # a recompute updates copies: the same call, no buffer moves
-        recomputing = getattr(_recomputing, "active", False)
-        mean = self.running_mean.clone() if recomputing else self.running_mean
+        again = recomputing()
+        mean = self.running_mean.clone() if again else self.running_mean
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
-        if recomputing:
+        if again:
             return y
         n = x.numel() // x.shape[1]
         # torch wrote var = (1-m) old + m b n/(n-1), b the biased variance;
@@ -120,32 +126,15 @@ class _BiasedRunningVar:
         return y
 
     def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Train-mode batch norm over the group's joined batch.  Each rank
-        puts its per-channel count, mean and sum of squared deviations into
-        its row of a (ranks, 3, C) table; one all_reduce gives every rank
-        the whole table, from which it combines the global mean and biased
-        variance (Chan et al.'s pairwise update).  Combining deviations
-        avoids the cancellation of E[x^2] - E[x]^2 (flax's fast variance)
-        where the mean is large against the spread.  The all_reduce is
-        ``psum``: its backward sums the table's cotangents over the group,
-        so the gradient of the global statistics reaches every rank's input."""
+        """Train-mode batch norm over the group's joined batch
+        (``group_moments``)."""
         c = x.shape[1]
         dims = [0, *range(2, x.dim())]
         shape = (1, c) + (1,) * (x.dim() - 2)
-        mean_r = x.mean(dims)
-        row = torch.stack([torch.full_like(mean_r, x.numel() // c), mean_r,
-                           (x - mean_r.view(shape)).square().sum(dims)])
-        k, size = dist.get_rank(self.process_group), dist.get_world_size(self.process_group)
-        table = psum(torch.cat([row.new_zeros((k, 3, c)), row[None],
-                                row.new_zeros((size - k - 1, 3, c))]), self.process_group,
-                     "batch_norm")
-        counts, means, m2 = table[:, 0].detach(), table[:, 1], table[:, 2]
-        count = counts.sum(0)
-        mean = (counts * means).sum(0) / count
-        var = (m2.sum(0) + (counts * (means - mean).square()).sum(0)) / count
+        mean, var = group_moments(x, dims, shape, self.process_group)
         y = (x - mean.view(shape)) * (torch.rsqrt(var + self.eps) * self.weight).view(shape)
         y = y + self.bias.view(shape)
-        if getattr(_recomputing, "active", False):
+        if recomputing():
             return y
         with torch.no_grad():
             m = self.momentum
@@ -153,6 +142,32 @@ class _BiasedRunningVar:
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked += 1
         return y
+
+
+def group_moments(x: torch.Tensor, dims, shape, process_group):
+    """Per-channel mean and biased variance of ``x`` over ``dims`` (the
+    channels broadcast as ``shape``) and over the joined batch of
+    ``process_group``.  Each rank puts its per-channel count, mean and sum
+    of squared deviations into its row of a (ranks, 3, C) table; one
+    all_reduce gives every rank the whole table, from which it combines the
+    global mean and biased variance (Chan et al.'s pairwise update).
+    Combining deviations avoids the cancellation of E[x^2] - E[x]^2 (flax's
+    fast variance) where the mean is large against the spread.  The
+    all_reduce is ``psum``: its backward sums the table's cotangents over
+    the group, so the gradient of the global statistics reaches every
+    rank's input."""
+    mean_r = x.mean(dims)
+    c = mean_r.numel()
+    row = torch.stack([torch.full_like(mean_r, x.numel() // c), mean_r,
+                       (x - mean_r.view(shape)).square().sum(dims)])
+    k, size = dist.get_rank(process_group), dist.get_world_size(process_group)
+    table = psum(torch.cat([row.new_zeros((k, 3, c)), row[None],
+                            row.new_zeros((size - k - 1, 3, c))]), process_group, "batch_norm")
+    counts, means, m2 = table[:, 0].detach(), table[:, 1], table[:, 2]
+    count = counts.sum(0)
+    mean = (counts * means).sum(0) / count
+    var = (m2.sum(0) + (counts * (means - mean).square()).sum(0)) / count
+    return mean, var
 
 
 class BatchNorm2d(_BiasedRunningVar, nn.BatchNorm2d):

@@ -1,5 +1,5 @@
 """Cost-volume regularization: dual ("small"/"huge" depth cell) 3D U-Nets
-(port of dmvsnet_tpu.models.cost_reg, unfolded layout).
+(port of dmvsnet_tpu.models.cost_reg).
 
 Each branch is a 3-level 3D U-Net (stride-2 at each level, additive skips)
 with a 2-channel head; the refine variant collapses its 4-plane depth
@@ -7,6 +7,14 @@ axis at the bottleneck and runs 2D convs there.  Cost volumes are
 (B, C, D, H, W) here; outputs (B, 4, D, H, W) with channels
 [small0, small1, huge0, huge1].  ``dtype`` is every block's compute dtype
 (``models/blocks.py``).
+
+``fold_level0`` (an attribute, so one model switches plans): where it is set
+and ``models/folded.use_folded_level0`` holds for the input, a branch runs
+its full-resolution level (``conv0``, ``conv1``, ``conv11``, ``prob``) in
+folded form (``models/folded.py``) over the same parameters; the levels
+below run as they are.  The port's default is False: the JAX package's
+default, True, was chosen on a TPU, and routing on the card comes from
+measurements on the card.
 
 ``AggWeightNetVolume`` is the per-voxel view-weight net of
 ``agg_mode="adaptive"``: two 1x1x1 ConvBlocks (batch norm, ReLU), 2 -> 1 -> 1.
@@ -17,13 +25,40 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dmvsnet_tpu_torch.models import folded
 from dmvsnet_tpu_torch.models.blocks import ConvBlock, DeconvBlock, PlainConv
 
 
-class CostRegNetPart(nn.Module):
+class _Branch(nn.Module):
+    """A cost U-Net branch: its full-resolution level (``conv0``, ``conv1``,
+    ``conv11``, ``prob``) around the levels below (``_middle``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold_level0:
+            if folded.use_folded_level0(x):
+                return folded.run(self, self._folded, self._unfolded, x)
+            folded.decline(type(self).__name__, x.shape)
+        return self._unfolded(x)
+
+    def _unfolded(self, x: torch.Tensor) -> torch.Tensor:
+        conv0 = self.conv0(x)
+        y = self._middle(self.conv2(self.conv1(conv0)))
+        y = conv0 + self.conv11(y)
+        return self.prob(y)
+
+    def _folded(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[2]
+        conv0 = folded.conv_block(self.conv0, folded.fold3d(x), d)       # folded
+        y = self._middle(self.conv2(folded.conv_block(self.conv1, conv0, d)))
+        y = conv0 + folded.deconv_block(self.conv11, y, d // 2)           # folded
+        return folded.unfold3d(folded.plain_conv(self.prob, y, d), d, 2)
+
+
+class CostRegNetPart(_Branch):
     def __init__(self, in_channels: int = 2, base_channels: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fold_level0: bool = False):
         super().__init__()
+        self.fold_level0 = fold_level0
         b = base_channels
         self.conv0 = ConvBlock(in_channels, b, dims=3, dtype=dtype)
         self.conv1 = ConvBlock(b, b * 2, stride=2, dims=3, dtype=dtype)
@@ -37,24 +72,21 @@ class CostRegNetPart(nn.Module):
         self.conv11 = DeconvBlock(b * 2, b, dims=3, dtype=dtype)
         self.prob = PlainConv(b, 2, kernel=3, dims=3, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv0 = self.conv0(x)
-        conv2 = self.conv2(self.conv1(conv0))
+    def _middle(self, conv2: torch.Tensor) -> torch.Tensor:
         conv4 = self.conv4(self.conv3(conv2))
         y = self.conv6(self.conv5(conv4))
         y = conv4 + self.conv7(y)
-        y = conv2 + self.conv9(y)
-        y = conv0 + self.conv11(y)
-        return self.prob(y)
+        return conv2 + self.conv9(y)
 
 
-class CostRegNetPartRefine(nn.Module):
+class CostRegNetPartRefine(_Branch):
     """Refine branch: 2D bottleneck at the collapsed D=1 level (the input
     always has D=4)."""
 
     def __init__(self, in_channels: int = 2, base_channels: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fold_level0: bool = False):
         super().__init__()
+        self.fold_level0 = fold_level0
         b = base_channels
         self.conv0 = ConvBlock(in_channels, b, dims=3, dtype=dtype)
         self.conv1 = ConvBlock(b, b * 2, stride=2, dims=3, dtype=dtype)
@@ -68,25 +100,22 @@ class CostRegNetPartRefine(nn.Module):
         self.conv11 = DeconvBlock(b * 2, b, dims=3, dtype=dtype)
         self.prob = PlainConv(b, 2, kernel=3, dims=3, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv0 = self.conv0(x)                                  # D=4
-        conv2 = self.conv2(self.conv1(conv0))                  # D=2
+    def _middle(self, conv2: torch.Tensor) -> torch.Tensor:   # conv2: D=2
         conv4 = self.conv4(self.conv3(conv2))                  # D=1
         conv4_2d = conv4.squeeze(2)
         y = self.conv6(self.conv5(conv4_2d))
         y = (conv4_2d + self.conv7(y)).unsqueeze(2)            # D=1
-        y = conv2 + self.conv9(y)
-        y = conv0 + self.conv11(y)
-        return self.prob(y)
+        return conv2 + self.conv9(y)
 
 
 class CostRegNet(nn.Module):
     """Dual branch: small + huge concatenated to 4 channels."""
 
-    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32,
+                 fold_level0: bool = False):
         super().__init__()
-        self.cosR_small = CostRegNetPart(2, base_channels, dtype)
-        self.cosR_huge = CostRegNetPart(2, base_channels, dtype)
+        self.cosR_small = CostRegNetPart(2, base_channels, dtype, fold_level0)
+        self.cosR_huge = CostRegNetPart(2, base_channels, dtype, fold_level0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([self.cosR_small(x), self.cosR_huge(x)], dim=1)
@@ -95,10 +124,11 @@ class CostRegNet(nn.Module):
 class CostRegNetRefine(nn.Module):
     """Dual refine branch."""
 
-    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32,
+                 fold_level0: bool = False):
         super().__init__()
-        self.cosR_small = CostRegNetPartRefine(2, base_channels, dtype)
-        self.cosR_huge = CostRegNetPartRefine(2, base_channels, dtype)
+        self.cosR_small = CostRegNetPartRefine(2, base_channels, dtype, fold_level0)
+        self.cosR_huge = CostRegNetPartRefine(2, base_channels, dtype, fold_level0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([self.cosR_small(x), self.cosR_huge(x)], dim=1)

@@ -1,5 +1,4 @@
-"""Feature pyramid network (port of dmvsnet_tpu.models.feature_net,
-unfolded branch).
+"""Feature pyramid network (port of dmvsnet_tpu.models.feature_net).
 
 3-scale encoder + top-down FPN whose double-width output heads split into
 a main half (first cost pass) and a "_c" half (checkerboard refine pass).
@@ -7,6 +6,13 @@ With base_channels=8: stage1 32(+32) at 1/4, stage2 16(+16) at 1/2,
 stage3 8(+8) at full resolution.  Module names follow the reference
 layout (``conv0.0`` ... ``conv2.2``, ``out1..3``, ``inner1..2``).
 ``dtype`` is every block's compute dtype (``models/blocks.py``).
+
+``fold_level0`` (an attribute, default False as in the JAX package): with
+even H and W the full-resolution level runs in 2x2 folded form
+(``models/folded.py``) over the same parameters: ``conv0.0``, ``conv0.1``,
+``conv1.0`` (k5, stride 2: plain out), and ``inner2`` / ``out3``, where the
+nearest 2x upsample of the half-resolution map is its tiling over the four
+fold phases.
 """
 
 from __future__ import annotations
@@ -14,12 +20,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dmvsnet_tpu_torch.models import folded
 from dmvsnet_tpu_torch.models.blocks import ConvBlock, PlainConv, upsample_nearest_2x
 
 
 class FeatureNet(nn.Module):
-    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32,
+                 fold_level0: bool = False):
         super().__init__()
+        self.fold_level0 = fold_level0
         c = base_channels
 
         def conv(cin, cout, k, s):
@@ -38,14 +47,37 @@ class FeatureNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (N, 3, H, W) -> {stage1..3, stage1_c..3_c}, each (N, C, h, w)."""
-        conv0 = self.conv0(x)
-        conv1 = self.conv1(conv0)
-        conv2 = self.conv2(conv1)
+        if not self.fold_level0:
+            heads = self._unfolded(x)
+        elif x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
+            heads = folded.run(self, self._folded, self._unfolded, x)
+        else:
+            folded.decline("FeatureNet", x.shape)
+            heads = self._unfolded(x)
         outputs = {}
-        intra = conv2
-        outputs["stage1"], outputs["stage1_c"] = self.out1(intra).chunk(2, dim=1)
-        intra = upsample_nearest_2x(intra) + self.inner1(conv1)
-        outputs["stage2"], outputs["stage2_c"] = self.out2(intra).chunk(2, dim=1)
-        intra = upsample_nearest_2x(intra) + self.inner2(conv0)
-        outputs["stage3"], outputs["stage3_c"] = self.out3(intra).chunk(2, dim=1)
+        for s, out in enumerate(heads):
+            outputs[f"stage{s + 1}"], outputs[f"stage{s + 1}_c"] = out.chunk(2, dim=1)
         return outputs
+
+    def _lower(self, conv1: torch.Tensor):
+        """(out1, out2, the 1/2-resolution FPN map) from the 1/2-resolution
+        encoder output."""
+        conv2 = self.conv2(conv1)
+        intra = conv2
+        out1 = self.out1(intra)
+        intra = upsample_nearest_2x(intra) + self.inner1(conv1)
+        return out1, self.out2(intra), intra
+
+    def _unfolded(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        conv0 = self.conv0(x)
+        out1, out2, intra = self._lower(self.conv1(conv0))
+        intra = upsample_nearest_2x(intra) + self.inner2(conv0)
+        return out1, out2, self.out3(intra)
+
+    def _folded(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        conv0 = folded.conv_block(self.conv0[1], folded.conv_block(self.conv0[0], folded.fold2d(x)))
+        x1 = folded.conv_block(self.conv1[0], conv0)              # plain, 1/2 resolution
+        out1, out2, intra = self._lower(self.conv1[2](self.conv1[1](x1)))
+        intra = intra.repeat(1, 4, 1, 1) + folded.plain_conv(self.inner2, conv0)
+        return out1, out2, folded.unfold2d(folded.plain_conv(self.out3, intra),
+                                           self.out3.out_channels)

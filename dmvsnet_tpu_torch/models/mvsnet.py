@@ -62,6 +62,16 @@ package's ``train`` argument does.
   each cost U-Net and each cost pass but the adaptive one
   (``blocks.checkpoint``; running statistics are updated once per step),
   as the JAX package's ``nn.remat`` / ``jax.checkpoint`` do;
+* ``fold_level0`` (None, True or False; an attribute, so one model switches
+  plans): True runs the feature net's full-resolution level in folded form,
+  and the level 0 of every cost U-Net whose input meets
+  ``models/folded.use_folded_level0`` (at DTU eval the stage-3 main pass and
+  the three refine passes), as the JAX package's ``fold_level0=True`` does;
+  False folds nothing.  None is the port's default for the card, which in
+  this package is unfolded everywhere: the JAX package's None (cost U-Nets
+  folded, feature net not) was chosen on a TPU.  Parameters, names and
+  shapes are the same under every plan; ``engine/profiler``'s count is the
+  unfolded program's under every plan;
 * ``run_stages`` (a diagnostic, as in the JAX package): 0 runs every
   stage; k stops after k whole stages; a fraction stops part way through
   stage int(k) + 1 and returns what it reached under ``outputs["partial"]``:
@@ -85,7 +95,7 @@ import torch
 from torch import nn
 
 from dmvsnet_tpu_torch.core import sampling
-from dmvsnet_tpu_torch.models import depth_net
+from dmvsnet_tpu_torch.models import depth_net, folded
 from dmvsnet_tpu_torch.models.blocks import checkpoint, spatial_split, sync_batch_norm
 from dmvsnet_tpu_torch.models.cost_reg import AggWeightNetVolume, CostRegNet, CostRegNetRefine
 from dmvsnet_tpu_torch.models.feature_net import FeatureNet
@@ -128,6 +138,7 @@ class MVSNet(nn.Module):
         costreg_dtype: torch.dtype | None = None,
         remat: bool = False,
         run_stages: float = 0,
+        fold_level0: bool | None = None,
     ):
         super().__init__()
         if warp_impl not in ("cuda", "epipolar", "torch"):
@@ -160,6 +171,7 @@ class MVSNet(nn.Module):
                 [AggWeightNetVolume(dtype=dtype) for _ in cr_base_channels])
         self.mesh = mesh
         self.run_stages = run_stages
+        self.fold_level0 = fold_level0
         if mesh is not None:
             sync_batch_norm(self, mesh.group(AXIS_DATA))
             if mesh.size(AXIS_SPATIAL) > 1:
@@ -167,6 +179,18 @@ class MVSNet(nn.Module):
                     raise ValueError("run_stages does not run with a mesh that splits rows")
                 for reg in (*self.cost_regularization, *self.cost_regularization_refine):
                     spatial_split(reg, mesh)
+
+    @property
+    def fold_level0(self) -> bool | None:
+        return self._fold_level0
+
+    @fold_level0.setter
+    def fold_level0(self, value: bool | None) -> None:
+        if value not in (None, True, False):
+            raise ValueError(f"fold_level0 must be None, True or False, got {value!r}")
+        self._fold_level0 = value
+        for net in (self.feature, *self.cost_regularization, *self.cost_regularization_refine):
+            folded.set_fold_level0(net, bool(value))
 
     def forward(
         self,

@@ -6,7 +6,9 @@ no JAX function runs here.
 
 One train step (32x64, 3 views, batch 1, ndepths 8/8/8, inverse depth,
 learning rate 0 so the gradients stay in ``.grad``) with and without remat,
-for fp32, ``compute_dtype=bfloat16`` and ``agg_mode="adaptive"``; and one
+for fp32, ``compute_dtype=bfloat16``, ``agg_mode="adaptive"`` and
+``fold_level0=True`` (every U-Net level 0 and the feature net folded, whose
+batch norms a recompute must not update either); and one
 training step through the CLI with ``--remat`` against the same without
 it.  The dp step on 2 gloo ranks with and without remat, where the
 recomputed synced batch norms all_reduce again inside the backward, is
@@ -38,7 +40,8 @@ from dmvsnet_tpu_torch.utils import synthetic
 
 NDEPTHS, RATIOS, DLOSSW, V = (8, 8, 8), (4, 2, 1), (0.5, 1.0, 2.0), 3
 H, W = 32, 64
-VARIANTS = {"fp32": {}, "bf16": dict(dtype=torch.bfloat16), "adaptive": dict(agg_mode="adaptive")}
+VARIANTS = {"fp32": {}, "bf16": dict(dtype=torch.bfloat16), "adaptive": dict(agg_mode="adaptive"),
+            "fold": dict(fold_level0=True)}
 
 
 @pytest.fixture(autouse=True, scope="module")

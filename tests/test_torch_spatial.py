@@ -11,7 +11,8 @@ JAX nor the JAX package.  As a test file it holds:
   every group, for (dp, vp, sp) = (2, 1, 2), (1, 2, 2) and (2, 2, 2);
 * (b) on 2 ranks, uneven bands of 24 + 16 rows: the halo-exchanged
   ``ConvBlock`` (3-D stride 1 and 2, 2-D stride 1 and 2), ``DeconvBlock``
-  (2-D and 3-D) and whole ``CostRegNet`` / ``CostRegNetRefine`` in train
+  (2-D and 3-D) and whole ``CostRegNet`` / ``CostRegNetRefine`` (and a
+  ``CostRegNet`` whose level 0 runs folded, ``fold_level0=True``) in train
   mode against the unsplit module on the whole input: output, input
   gradient, weight gradient (summed over the ranks) and the new running
   statistics, at 1e-5 relative;
@@ -68,6 +69,8 @@ BLOCKS = {
     "deconv3d": (lambda: DeconvBlock(4, 3, dims=3), (2, 4, 4, H, 12), 2.0),
     "costregnet": (lambda: CostRegNet(4), (2, 2, 8, H, 16), 1.0),
     "costregnet_refine": (lambda: CostRegNetRefine(4), (2, 2, 4, H, 16), 1.0),
+    # level 0 folded (models/folded.py): folded bands of 12 + 8 rows
+    "costregnet_folded": (lambda: CostRegNet(4, fold_level0=True), (2, 2, 8, H, 16), 1.0),
 }
 NDEPTHS, RATIOS = (8, 8, 8), (4, 2, 1)
 
