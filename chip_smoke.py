@@ -263,6 +263,7 @@ from dmvsnet_tpu_torch.parallel import (
     shard_batch,
     spatial,
 )
+from dmvsnet_tpu_torch.parallel import mesh as mesh_lib
 from dmvsnet_tpu_torch.utils import synthetic
 from dmvsnet_tpu_torch import cli
 
@@ -1857,33 +1858,27 @@ def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
 
 @contextlib.contextmanager
 def counting_all_reduce():
-    """Within the block every ``torch.distributed.all_reduce`` of the port
-    (batch norm, loss counts, metrics, the vp cost sum, the sp halo
-    exchanges and gathers) is counted: calls and bytes, into the yielded
-    dict, and per kind under "by_label": the ``label`` of the
-    ``parallel.mesh.psum`` that issued it, forward or backward ("halo",
-    "gather", "batch_norm", "view_sum"), "other" for the unlabelled ones
-    (the loss's and the metrics' sums).  DDP's gradient all_reduce runs in
-    C++ and is counted apart (its bytes are the parameters')."""
+    """What the port all-reduced within the block (batch norm, loss counts,
+    metrics, the vp cost sum, the sp halo exchanges and gathers), from
+    ``parallel.mesh.all_reduces``: calls and bytes, filled into the yielded
+    dict at the block's end, and per kind under "by_label": the ``label``
+    of the ``parallel.mesh.psum`` that issued it, forward or backward
+    ("halo", "gather", "batch_norm", "view_sum"), "other" for the
+    unlabelled ones (the loss's and the metrics' sums).  DDP's gradient
+    all_reduce runs in C++ and is counted apart (its bytes are the
+    parameters')."""
     seen = {"calls": 0, "bytes": 0, "by_label": {}}
-    saved = dist.all_reduce
-
-    def counted(tensor, *args, **kwargs):
-        nbytes = tensor.numel() * tensor.element_size()
-        ctx = sys._getframe(1).f_locals.get("ctx")
-        label = getattr(ctx, "label", None) or "other"
-        seen["calls"] += 1
-        seen["bytes"] += nbytes
-        kind = seen["by_label"].setdefault(label, {"calls": 0, "bytes": 0})
-        kind["calls"] += 1
-        kind["bytes"] += nbytes
-        return saved(tensor, *args, **kwargs)
-
-    dist.all_reduce = counted
+    before = mesh_lib.all_reduces()
     try:
         yield seen
     finally:
-        dist.all_reduce = saved
+        zero = {"calls": 0, "bytes": 0}
+        for label, counts in mesh_lib.all_reduces().items():
+            kind = {k: v - before.get(label, zero)[k] for k, v in counts.items()}
+            if kind["calls"]:
+                seen["by_label"][label] = kind
+                seen["calls"] += kind["calls"]
+                seen["bytes"] += kind["bytes"]
 
 
 def held_step(net, model, step, optimizer, scheduler, batch) -> dict:

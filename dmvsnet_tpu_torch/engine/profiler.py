@@ -11,19 +11,15 @@ and ``--fold``, which runs the folded level-0 plan
 (``MVSNet.fold_level0 = True``, ``models/folded.py``).
 
 Builds the DTU-eval MVSNet (864x1152, 5 views, ndepths 48/32/8, inverse
-depth, seeded random weights) on CUDA and times one batch forward with
-CUDA events: the whole forward, the feature net, each cost U-Net, the
-cost passes (geometry, gates and kernels) and inside them each hand-written
-kernel under its own name (``warp_correlate``; with ``--warp_impl
-epipolar`` also ``resample`` and ``sweep1d``), the rest being sampling,
-depth heads and layout copies.  Then a torch.profiler table of the kernels
-by device time, and the peak device memory of a forward.
-
-``--train`` builds the DTU-train MVSNet instead (512x640, 5 views, batch 2,
-ndepths 48/32/8, inverse depth, fp32, Adam) and times train steps on one
-synthetic batch: forward (model + loss), backward, optimizer, and inside
-them each of the three warp-correlate kernels summed over its six
-launches; then the kernel table and the peak device memory of a step.
+depth, seeded random weights) on CUDA, or with ``--train`` the DTU-train
+one (512x640, 5 views, batch 2, ndepths 48/32/8, inverse depth, fp32, Adam)
+on one synthetic batch, and runs three forwards or train steps in one
+torch.profiler session after a warm-up.  Prints the device ms of one
+forward or step by program span (``utils/trace``: ``mvsnet.*`` per stage
+and pass, ``train.*`` per phase; what each span launched, on any thread)
+and by hand-written kernel (``warp_correlate``, its two adjoints, and
+with ``--warp_impl epipolar`` ``resample`` and ``sweep1d``), the peak
+device memory of one more, then the session's table of ops by device time.
 
 Measures only: the port itself never sets
 ``--tf32`` or ``--cudnn-benchmark`` (it pins fp32 and leaves cuDNN's
@@ -44,7 +40,6 @@ import argparse
 import contextlib
 import json
 import os
-import statistics
 import time
 from collections import defaultdict
 from typing import Any, Callable
@@ -58,12 +53,11 @@ from torch.utils.flop_counter import flop_registry
 from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.config import preset
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
+from dmvsnet_tpu_torch.engine.steps import make_train_step
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
-from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
 from dmvsnet_tpu_torch.ops import cuda_build
-from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
-from dmvsnet_tpu_torch.utils import synthetic
+from dmvsnet_tpu_torch.utils import synthetic, trace
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -251,16 +245,22 @@ def wall_clock(label: str = "", sync: Any = None):
     print(f"{label}: {time.perf_counter() - t0:.3f}s", flush=True)
 
 
+def _activities() -> list:
+    """CPU activity, and CUDA activity where there is a card."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """torch.profiler over the block, CPU and (where there is one) CUDA
     activity; writes the Chrome trace ``log_dir/trace.json`` at exit
-    (open it in Perfetto or chrome://tracing).  Yields the profiler."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    (open it in Perfetto or chrome://tracing), in which the program's spans
+    (``utils/trace``) are user annotations.  Yields the profiler."""
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=_activities()) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
@@ -289,136 +289,41 @@ def synthetic_inputs(cfg, batch: int, device):
     return b["imgs"], b["proj_matrices"], b["depth_values"]
 
 
-class _Spans:
-    """CUDA-event spans by name, summed over one forward."""
-
-    def __init__(self):
-        self.events = defaultdict(list)
-
-    def start(self, name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events[name].append([ev, None])
-
-    def end(self, name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.events[name][-1][1] = ev
-
-    def ms(self) -> dict[str, float]:
-        torch.cuda.synchronize()
-        return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in self.events.items()}
-
-
-def _timed_launches(spans: _Spans):
-    """cuda_build.launch wrapped in a span named after the kernel."""
-    real = cuda_build.launch
-
-    def timed_launch(name, *args):
-        spans.start(name)
-        real(name, *args)
-        spans.end(name)
-
-    return real, timed_launch
-
-
-def breakdown(model, inputs, reps: int = 3) -> dict[str, float]:
-    """Median over `reps` forwards of each span's summed milliseconds.  The
-    kernels' spans lie inside ``cost_passes``; ``other`` is the forward less
-    the module and cost-pass spans."""
-    spans = _Spans()
-    hooks = []
-    for name, mod in model.named_modules():
-        if name == "feature" or name.startswith("cost_regularization") and name.count(".") == 1:
-            key = "feature_net" if name == "feature" else (
-                "costreg_refine" if "refine" in name else "costreg") + f"_s{int(name[-1]) + 1}"
-            hooks.append(mod.register_forward_pre_hook(lambda m, a, k=key: spans.start(k)))
-            hooks.append(mod.register_forward_hook(lambda m, a, o, k=key: spans.end(k)))
-
-    def timed_pass(real):
-        def run(*args, **kw):
-            spans.start("cost_passes")
-            out = real(*args, **kw)
-            spans.end("cost_passes")
-            return out
-        return run
-
-    real_exact, real_epi = wc.aggregate_cost_volume, es.aggregate_cost_volume_epipolar
-    real_adaptive = wc.aggregate_cost_volume_adaptive
-    real_launch, timed_launch = _timed_launches(spans)
-    runs = []
-    wc.aggregate_cost_volume = timed_pass(real_exact)
-    wc.aggregate_cost_volume_adaptive = timed_pass(real_adaptive)
-    es.aggregate_cost_volume_epipolar = timed_pass(real_epi)
-    cuda_build.launch = timed_launch
-    try:
-        with torch.inference_mode():
-            model(*inputs)
-            for _ in range(reps):
-                spans.events.clear()
-                spans.start("forward")
-                model(*inputs)
-                spans.end("forward")
-                runs.append(spans.ms())
-    finally:
-        wc.aggregate_cost_volume, es.aggregate_cost_volume_epipolar = real_exact, real_epi
-        wc.aggregate_cost_volume_adaptive = real_adaptive
-        cuda_build.launch = real_launch
-        for h in hooks:
-            h.remove()
-    out = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-    out["other"] = out["forward"] - sum(
-        v for k, v in out.items() if k != "forward" and k not in cuda_build.KERNELS)
+def span_ms(prof, reps: int = 1) -> dict[str, float]:
+    """Device milliseconds per run of ``reps`` in a finished profiler
+    session ``prof``: per program span name (``utils/trace``), the kernels,
+    copies and sets launched inside any of its host ranges, on any thread
+    (a CUDA backward runs on autograd's own thread, outside the span tree
+    of ``key_averages``); per hand-written kernel (``cuda_build.KERNELS``),
+    its device time from ``key_averages``."""
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    launched = [(e.time_range.start, sum(k.duration for k in e.kernels)) for e in cpu
+                if e.kernels]
+    ranges = defaultdict(list)
+    for e in cpu:
+        if e.name.startswith(trace.PREFIXES):
+            ranges[e.name].append((e.time_range.start, e.time_range.end))
+    out = {name: sum(d for t, d in launched if any(a <= t <= b for a, b in rs)) / 1e3 / reps
+           for name, rs in sorted(ranges.items())}
+    for row in prof.key_averages():
+        kernel = next((k for k in cuda_build.KERNELS if f"{k}_kernel" in row.key), None)
+        if kernel:
+            out[kernel] = out.get(kernel, 0.0) + row.self_device_time_total / 1e3 / reps
     return out
 
 
-def _profiled(fn, rows: int = 15) -> str:
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=rows)
-
-
-def kernel_table(model, inputs, rows: int = 15) -> str:
-    with torch.inference_mode():
-        return _profiled(lambda: model(*inputs), rows)
-
-
-def train_breakdown(cfg, model, optimizer, scheduler, batch, reps: int = 3):
-    """(median over `reps` train steps of each span's summed milliseconds,
-    a function that runs one more step)."""
-    spans = _Spans()
-    real_launch, timed_launch = _timed_launches(spans)
-
-    def step():
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        spans.start("step")
-        spans.start("forward")
-        out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-        loss = mvs_loss(out, batch["depth"], batch["mask"], cfg.depth_mode, tuple(cfg.dlossw))
-        spans.end("forward")
-        spans.start("backward")
-        loss.backward()
-        spans.end("backward")
-        spans.start("optimizer")
-        optimizer.step()
-        scheduler.step()
-        spans.end("optimizer")
-        spans.end("step")
-
-    runs = []
-    cuda_build.launch = timed_launch
-    try:
-        step()
+def breakdown(run: Callable[[], Any], reps: int = 3) -> tuple[dict[str, float], str]:
+    """(``span_ms`` of ``run`` (an eval forward or a train step), the
+    session's table of ops by device time): one warm-up call, then one
+    ``torch.profiler`` session over ``reps`` calls."""
+    run()
+    with torch.profiler.profile(activities=_activities()) as prof:
         for _ in range(reps):
-            spans.events.clear()
-            step()
-            runs.append(spans.ms())
-    finally:
-        cuda_build.launch = real_launch
-    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}, step
+            run()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
+    return span_ms(prof, reps), table
 
 
 def _options(args) -> dict:
@@ -435,16 +340,17 @@ def main_train(args, device) -> None:
         model.parameters(), make_lr_schedule(cfg.lr, 1, cfg.scheduler, cfg.warmup,
                                              cfg.milestones, cfg.lr_decay, cfg.epochs), cfg.wd)
     batch = _batch(cfg, cfg.batch_size, cfg.nviews, *cfg.img_size, device)
-    times, step = train_breakdown(cfg, model, optimizer, scheduler, batch)
+    step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
+    times, table = breakdown(lambda: step(model, optimizer, scheduler, batch))
     torch.cuda.reset_peak_memory_stats()
-    step()
+    step(model, optimizer, scheduler, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     print("train_breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
         cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9, ms=times)), flush=True)
-    print(_profiled(step), flush=True)
+    print(table, flush=True)
 
 
 def main(argv=None) -> None:
@@ -475,17 +381,21 @@ def main(argv=None) -> None:
     model = build_train_model(cfg, device).eval()
     model.fold_level0 = True if args.fold else None
     inputs = synthetic_inputs(cfg, args.batch, device)
-    times = breakdown(model, inputs)
+
+    def forward():
+        with torch.inference_mode():
+            model(*inputs)
+
+    times, table = breakdown(forward)
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
-        model(*inputs)
+    forward()
     peak = torch.cuda.max_memory_allocated()
     print("breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
         cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9,
-        ms_per_map=times["forward"] / args.batch, ms=times)), flush=True)
-    print(kernel_table(model, inputs), flush=True)
+        ms_per_map=times["mvsnet.forward"] / args.batch, ms=times)), flush=True)
+    print(table, flush=True)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ import torch
 from dmvsnet_tpu_torch.losses import metrics as metrics_lib
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
 from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA
+from dmvsnet_tpu_torch.utils.trace import span
 
 
 def _scalars(outputs, batch, loss, dlossw, mesh) -> dict[str, torch.Tensor]:
@@ -38,21 +39,29 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression",
 
     Puts the model in train mode, runs forward, loss and backward, one
     optimizer step, then one scheduler step.  ``scalars`` holds loss, the
-    standard metrics (device tensors) and the learning rate this step used; depth and confidence stay on the device too, so the host pays
-    a copy only where it reads them.
+    standard metrics (device tensors) and the learning rate this step used;
+    depth and confidence stay on the device too, so the host pays a copy
+    only where it reads them.  The step is the span ``train.step``, each
+    phase a span inside it (``utils/trace``).
     """
 
     def train_step(model, optimizer, scheduler, batch):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-        loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
-        loss.backward()
-        scalars = _scalars(outputs, batch, loss, dlossw, mesh)
-        scalars["lr"] = scheduler.get_last_lr()[0]
-        optimizer.step()
-        scheduler.step()
-        return scalars, (outputs["depth"].detach(), outputs["photometric_confidence"])
+        with span("train.step"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+            with span("train.loss"):
+                loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.metrics"):
+                scalars = _scalars(outputs, batch, loss, dlossw, mesh)
+                scalars["lr"] = scheduler.get_last_lr()[0]
+            with span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            return scalars, (outputs["depth"].detach(), outputs["photometric_confidence"])
 
     return train_step
 

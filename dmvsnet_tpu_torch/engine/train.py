@@ -43,6 +43,7 @@ from dmvsnet_tpu_torch.parallel.mesh import (
     replicate_tree,
     shard_batch,
 )
+from dmvsnet_tpu_torch.utils.trace import span
 
 
 class AverageMeter:
@@ -128,6 +129,18 @@ def data_parallel(model: MVSNet):
         return model
     replicate_tree(model)
     return DistributedDataParallel(model, broadcast_buffers=False, init_sync=False)
+
+
+def _spanned_fetches(loader):
+    """The batches of ``loader``, each fetch inside the span ``train.load``
+    (the wait of a data-starved run)."""
+    batches = iter(loader)
+    while True:
+        with span("train.load"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 class Trainer:
@@ -226,7 +239,7 @@ class Trainer:
             self.train_loader.set_epoch(epoch)
             meter = AverageMeter()
             t0 = time.time()
-            for i, host_batch in enumerate(self.train_loader):
+            for i, host_batch in enumerate(_spanned_fetches(self.train_loader)):
                 batch = self.to_device(host_batch)
                 scalars, (depth, conf) = self.train_step(
                     self.net, self.optimizer, self.scheduler, batch)

@@ -102,6 +102,7 @@ from dmvsnet_tpu_torch.models.feature_net import FeatureNet
 from dmvsnet_tpu_torch.ops import epipolar_sweep, warp_correlate
 from dmvsnet_tpu_torch.parallel import spatial
 from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_SPATIAL, AXIS_VIEW
+from dmvsnet_tpu_torch.utils.trace import span
 
 # Per-(stage, pass) epipolar routing, consulted only under
 # warp_impl="epipolar": the stage indices whose main / refine cost pass take
@@ -198,6 +199,10 @@ class MVSNet(nn.Module):
         proj_matrices: dict[str, torch.Tensor],
         depth_values: torch.Tensor,
     ) -> dict[str, Any]:
+        with span("mvsnet.forward"):
+            return self._forward(imgs, proj_matrices, depth_values)
+
+    def _forward(self, imgs, proj_matrices, depth_values) -> dict[str, Any]:
         num_stage = len(self.ndepths)
         b, v, h, w, _ = imgs.shape
         scale0 = 2 ** (num_stage - 1)
@@ -218,7 +223,7 @@ class MVSNet(nn.Module):
         depth_interval = (depth_values[0, -1] - depth_values[0, 0]) / depth_values.shape[1]
 
         x = imgs.float().reshape(b * v, h, w, imgs.shape[-1]).permute(0, 3, 1, 2)
-        feats = self._remat(self.feature, x.contiguous())
+        feats = self._remat("mvsnet.feature", self.feature, x.contiguous())
         # channels-last (B, V, h, w, C) in the compute dtype: each bilinear
         # tap of the cost pass reads C contiguous values
         feats = {k: f.reshape(b, v, *f.shape[1:]).permute(0, 1, 3, 4, 2).to(
@@ -230,57 +235,62 @@ class MVSNet(nn.Module):
         vp = 1 if self.mesh is None else self.mesh.size(AXIS_VIEW)
         impl = "torch" if self.warp_impl == "torch" else "cuda"
         for s in range(num_stage):
-            stage = f"stage{s + 1}"
+            stage, name = f"stage{s + 1}", f"mvsnet.s{s + 1}"
             scale = 2 ** (num_stage - s - 1)
             sh, sw = h // scale, w // scale
             proj2 = proj_matrices[stage]
 
-            if s == 0:
-                samples, interval = sampling.stage1_samples(
-                    depth_values, self.ndepths[0], sh, sw, inverse=self.inverse_depth)
-            else:
-                samples, interval = sampling.cascade_samples(
-                    last_depth.detach(), self.ndepths[s],
-                    self.depth_interval_ratio[s] * depth_interval,
-                    inverse=self.inverse_depth)
-                samples = sampling.upsample_depth_samples(samples, sh, sw)
+            with span(name + ".sample"):
+                if s == 0:
+                    samples, interval = sampling.stage1_samples(
+                        depth_values, self.ndepths[0], sh, sw, inverse=self.inverse_depth)
+                else:
+                    samples, interval = sampling.cascade_samples(
+                        last_depth.detach(), self.ndepths[s],
+                        self.depth_interval_ratio[s] * depth_interval,
+                        inverse=self.inverse_depth)
+                    samples = sampling.upsample_depth_samples(samples, sh, sw)
             # this sp rank's rows of the stage, or None: the whole image
             bands = spatial.bands_for(sh, self.mesh, passes=2)
             band = None if bands is None else bands[self.mesh.coords[AXIS_SPATIAL]]
 
-            def cost_volume(key: str, dv: torch.Tensor, sweep_stages,
+            def cost_volume(key: str, p: str, dv: torch.Tensor, sweep_stages,
                             weight_net: nn.Module | None):
                 """(the (B, D, H, W, 2) fp32 cost volume, ``engaged`` or None)."""
-                engaged = None
+                engaged, cost_span = None, f"{name}.{p}.cost"
                 if self.agg_mode == "adaptive":
-                    cost = warp_correlate.aggregate_cost_volume_adaptive(
-                        feats[key], proj2, dv, lambda sim: self._gate(weight_net, sim), impl)
+                    with span(cost_span):
+                        cost = warp_correlate.aggregate_cost_volume_adaptive(
+                            feats[key], proj2, dv, lambda sim: self._gate(weight_net, sim), impl)
                 elif vp > 1 and (v - 1) % vp == 0:
-                    cost = self._remat(warp_correlate.aggregate_cost_volume_view_sharded,
+                    cost = self._remat(cost_span, warp_correlate.aggregate_cost_volume_view_sharded,
                                        feats[key], proj2, dv, self.mesh, impl)
                 elif self.warp_impl == "epipolar" and not self.training and s in sweep_stages:
-                    cost, engaged = epipolar_sweep.aggregate_cost_volume_epipolar(
-                        feats[key], proj2, dv)
+                    with span(cost_span):
+                        cost, engaged = epipolar_sweep.aggregate_cost_volume_epipolar(
+                            feats[key], proj2, dv)
                 else:
-                    cost = self._remat(warp_correlate.aggregate_cost_volume,
+                    cost = self._remat(cost_span, warp_correlate.aggregate_cost_volume,
                                        feats[key], proj2, dv, impl)
                 if self.warp_impl == "epipolar" and engaged is None:
                     engaged = torch.zeros((b, v - 1), dtype=torch.bool)
                 return cost, engaged
 
-            def regularize(cost: torch.Tensor, reg: nn.Module) -> torch.Tensor:
+            def regularize(cost: torch.Tensor, reg: nn.Module, p: str) -> torch.Tensor:
                 x = cost.to(self.costreg_dtype).permute(0, 4, 1, 2, 3).contiguous()
                 if band is not None:
                     x = spatial.take_rows(x, 3, band)
-                out = self._remat(self._regularize, reg, x, band is not None)  # (B, 4, D, h, w)
-                return out.permute(0, 2, 3, 4, 1)                          # (B, D, h, w, 4)
+                out = self._remat(f"{name}.{p}.costreg", self._regularize, reg, x,
+                                  band is not None)                # (B, 4, D, h, w)
+                return out.permute(0, 2, 3, 4, 1)                  # (B, D, h, w, 4)
 
-            def head(fn, cost_reg, dv):
-                if band is None:
-                    return fn(cost_reg, dv, interval)
-                out = fn(cost_reg, spatial.take_rows(dv, 2, band), interval)
-                return {k: spatial.gather_rows(x, self.mesh, _HEAD_H_AXIS[k], bands)
-                        if k in _HEAD_H_AXIS else x for k, x in out.items()}
+            def head(fn, cost_reg, dv, p: str):
+                with span(f"{name}.{p}.head"):
+                    if band is None:
+                        return fn(cost_reg, dv, interval)
+                    out = fn(cost_reg, spatial.take_rows(dv, 2, band), interval)
+                    return {k: spatial.gather_rows(x, self.mesh, _HEAD_H_AXIS[k], bands)
+                            if k in _HEAD_H_AXIS else x for k, x in out.items()}
 
             adaptive = self.agg_mode == "adaptive"
             # run_stages: where in this stage to stop (99: nowhere)
@@ -289,29 +299,31 @@ class MVSNet(nn.Module):
                 outputs["partial"] = samples
                 break
             # pass 1: full-plane sweep
-            cost, engaged = cost_volume(stage, samples, self.epipolar_main_stages,
+            cost, engaged = cost_volume(stage, "main", samples, self.epipolar_main_stages,
                                         self.agg_weight[s] if adaptive else None)
             if frac <= 0.5:
                 outputs["partial"] = cost
                 break
-            cost_reg = regularize(cost, self.cost_regularization[s])
+            cost_reg = regularize(cost, self.cost_regularization[s], "main")
             if frac <= 0.7:
                 outputs["partial"] = cost_reg
                 break
-            stage_out = {**head(depth_net.forward, cost_reg, samples), "depth_values": samples}
+            stage_out = {**head(depth_net.forward, cost_reg, samples, "main"),
+                         "depth_values": samples}
 
             # pass 2: 4-plane checkerboard refine on the "_c" features
             dv_c = stage_out["depth_values_c"]
-            cost_c, engaged_c = cost_volume(stage + "_c", dv_c, self.epipolar_refine_stages,
+            cost_c, engaged_c = cost_volume(stage + "_c", "refine", dv_c,
+                                            self.epipolar_refine_stages,
                                             self.agg_weight_refine[s] if adaptive else None)
             if frac <= 0.85:
                 outputs["partial"] = cost_c
                 break
-            cost_reg_c = regularize(cost_c, self.cost_regularization_refine[s])
+            cost_reg_c = regularize(cost_c, self.cost_regularization_refine[s], "refine")
             if frac <= 0.95:
                 outputs["partial"] = cost_reg_c
                 break
-            refine_out = head(depth_net.refine, cost_reg_c, dv_c)
+            refine_out = head(depth_net.refine, cost_reg_c, dv_c, "refine")
             if engaged is not None:
                 refine_out["sweep_engaged"] = engaged
                 refine_out["sweep_engaged_refine"] = engaged_c
@@ -326,13 +338,14 @@ class MVSNet(nn.Module):
                 break
         return outputs
 
-    def _remat(self, fn, *args):
-        """``fn(*args)``, recomputed in the backward under remat in train mode.
-        ``fn`` must read nothing but ``args`` and what stays fixed through
-        the forward: the recompute runs after the stage loop has moved on."""
+    def _remat(self, name: str, fn, *args):
+        """``fn(*args)`` inside the span ``name``; under remat in train mode
+        recomputed in the backward, span and all.  ``fn`` must read nothing
+        but ``args`` and what stays fixed through the forward: the recompute
+        runs after the stage loop has moved on."""
         if self.remat and self.training:
-            return checkpoint(fn, *args)
-        return fn(*args)
+            return checkpoint(_spanned, name, fn, *args)
+        return _spanned(name, fn, *args)
 
     @staticmethod
     def _regularize(reg: nn.Module, x: torch.Tensor, split: bool) -> torch.Tensor:
@@ -349,3 +362,8 @@ class MVSNet(nn.Module):
         fed in the compute dtype: (B, D, H, W, 1)."""
         x = sim.to(self.compute_dtype).permute(0, 4, 1, 2, 3).contiguous()
         return weight_net(x).permute(0, 2, 3, 4, 1)
+
+
+def _spanned(name: str, fn, *args):
+    with span(name):
+        return fn(*args)

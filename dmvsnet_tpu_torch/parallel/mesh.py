@@ -21,7 +21,10 @@ per mesh axis:
   whole image (parallel/spatial.py, models/mvsnet.py).
 
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used: gloo offers no
-more on CUDA tensors, and gloo is what ranks sharing one card use.
+more on CUDA tensors, and gloo is what ranks sharing one card use.  Every
+all_reduce of the port is issued here and counted by label
+(``all_reduces``); DDP's gradient all_reduce runs in its C++ reducer and is
+not among them.
 """
 
 from __future__ import annotations
@@ -35,11 +38,37 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmvsnet_tpu_torch.utils.trace import span
+
 AXIS_DATA = "dp"
 AXIS_VIEW = "vp"
 AXIS_SPATIAL = "sp"
 # the ranks that share a vp coordinate: the banded cost U-Nets' batch norm
 AXIS_DATA_SPATIAL = (AXIS_DATA, AXIS_SPATIAL)
+
+# all_reduce calls and bytes issued by this module since the last
+# reset_all_reduces, by label: the ``psum`` labels ("halo", "gather",
+# "batch_norm", "view_sum"), forward and backward, and "other" for
+# ``Mesh.all_reduce`` (the loss's and the metrics' sums)
+ALL_REDUCES: dict[str, dict[str, int]] = {}
+
+
+def all_reduces() -> dict[str, dict[str, int]]:
+    """{label: {"calls", "bytes"}} of every all_reduce counted so far."""
+    return {k: dict(v) for k, v in ALL_REDUCES.items()}
+
+
+def reset_all_reduces() -> None:
+    """Forgets every count, to count a run."""
+    ALL_REDUCES.clear()
+
+
+def _all_reduce(x: torch.Tensor, group, label: str | None) -> None:
+    """Sums ``x`` over ``group`` in place, counted under ``label``."""
+    counts = ALL_REDUCES.setdefault(label or "other", {"calls": 0, "bytes": 0})
+    counts["calls"] += 1
+    counts["bytes"] += x.numel() * x.element_size()
+    dist.all_reduce(x, group=group)
 
 
 def rank_and_world() -> tuple[int, int]:
@@ -68,21 +97,21 @@ class _PSum(torch.autograd.Function):
     def forward(ctx, x, group, label):
         ctx.group, ctx.label = group, label
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
+        _all_reduce(out, group, label)
         return out
 
     @staticmethod
     def backward(ctx, cot):
         cot = cot.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(cot, group=ctx.group)
+        _all_reduce(cot, ctx.group, ctx.label)
         return cot, None, None
 
 
 def psum(x: torch.Tensor, group, label: str | None = None) -> torch.Tensor:
     """Differentiable sum of ``x`` over the ranks of ``group`` (``x`` itself
     for None).  ``label`` names what the sum is for ("halo", "gather",
-    "batch_norm", "view_sum"); it changes nothing, and a caller counting
-    all_reduce calls can read it from the calling frame's ``ctx``."""
+    "batch_norm", "view_sum"); it changes nothing but the key under which
+    ``all_reduces`` counts the sum's forward and backward all_reduce."""
     return x if group is None else _PSum.apply(x, group, label)
 
 
@@ -121,7 +150,7 @@ class Mesh:
         out = x.detach().clone(memory_format=torch.contiguous_format)
         group = self.group(axis)
         if group is not None:
-            dist.all_reduce(out, group=group)
+            _all_reduce(out, group, None)
         return out
 
     def mean(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -194,11 +223,17 @@ def make_mesh(n_data: int | None = None, n_spatial: int = 1, n_view: int = 1,
 
 def shard_batch(tree, mesh: Mesh):
     """A host-local batch (nested dicts of numpy arrays) as tensors on this
-    rank's device.  The loader already yields this rank's share of the
-    global batch (``data/loader.py``: ``num_hosts`` / ``host_id``)."""
+    rank's device, inside the span ``train.h2d``.  The loader already yields
+    this rank's share of the global batch (``data/loader.py``: ``num_hosts``
+    / ``host_id``)."""
+    with span("train.h2d"):
+        return _to_device(tree, mesh.device)
+
+
+def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
-        return {k: shard_batch(v, mesh) for k, v in tree.items()}
-    return torch.from_numpy(tree).to(mesh.device)
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.from_numpy(tree).to(device)
 
 
 @torch.no_grad()

@@ -10,6 +10,8 @@ against the JAX package:
 * the synced batch norm on 2 ranks against flax ``BatchNorm`` over the
   joined batch, 2-D and 3-D: output, input gradient, scale / bias gradient
   (summed over ranks) and the new running mean / variance;
+* on the same ranks, ``parallel.mesh.all_reduces``: the batch norms' and
+  the view sum's all_reduces counted by label, calls and bytes;
 * ``aggregate_cost_volume_view_sharded`` on 2 and 4 ranks against the JAX
   function on the virtual CPU mesh of tests/conftest.py (32x32, V = 5, 8
   planes; 1e-5, as tests/test_sharding.py holds the JAX one against the
@@ -51,6 +53,7 @@ from dmvsnet_tpu_torch.models import MVSNet
 from dmvsnet_tpu_torch.models.blocks import BatchNorm2d, BatchNorm3d, sync_batch_norm
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
 from dmvsnet_tpu_torch.parallel import Mesh, init_multihost, make_mesh, spatial
+from dmvsnet_tpu_torch.parallel import mesh as mesh_lib
 from dmvsnet_tpu_torch.utils import synthetic
 
 WORKER = Path(__file__).resolve()
@@ -93,7 +96,8 @@ def collect(handle) -> list[dict]:
 def _bn_task(inputs: dict, rank: int, world: int) -> dict:
     """Both batch norms on this rank's share of the batch, synced over the
     world: output, gradients, new running statistics; then the eval-mode
-    output against an unsynced copy."""
+    output against an unsynced copy; the all_reduces issued."""
+    mesh_lib.reset_all_reduces()
     out = {}
     for dims, cls in ((2, BatchNorm2d), (3, BatchNorm3d)):
         case = inputs[f"bn{dims}d"]
@@ -113,17 +117,20 @@ def _bn_task(inputs: dict, rank: int, world: int) -> dict:
                                  bias_grad=bn.bias.grad, mean=bn.running_mean.clone(),
                                  var=bn.running_var.clone(), eval_equal=eval_equal,
                                  tracked=int(bn.num_batches_tracked))
+    out["bn_all_reduces"] = mesh_lib.all_reduces()
     return out
 
 
 def _view_task(inputs: dict, rank: int, world: int) -> dict:
     """The view-sharded cost pass over ``world`` vp ranks and the feature
-    gradient through it."""
+    gradient through it; the all_reduces issued."""
     mesh = make_mesh(n_data=1, n_view=world)
     feats = inputs["feats"].clone().requires_grad_()
+    mesh_lib.reset_all_reduces()
     cost = wc.aggregate_cost_volume_view_sharded(feats, inputs["proj2"], inputs["dv"], mesh)
     (cost * inputs["cot"]).sum().backward()
-    return dict(cost=cost.detach(), grad=feats.grad, coords=mesh.coords)
+    return dict(cost=cost.detach(), grad=feats.grad, coords=mesh.coords,
+                view_all_reduces=mesh_lib.all_reduces())
 
 
 def _step_task(inputs: dict, rank: int, world: int) -> dict:
@@ -324,6 +331,20 @@ def test_view_sharded_cost_pass_matches_jax(ranked, world):
     for i, r in enumerate(ranks):
         others = [v for v in range(1, 5) if not 1 + i * k <= v < 1 + (i + 1) * k]
         assert float(r["grad"][:, others].abs().max()) == 0.0
+
+
+def test_all_reduces_are_counted_by_label(ranked):
+    """Each psum is counted forward and backward under its label: two
+    synced batch norms, each a (2 ranks, 3, 3 channels) fp32 table; one
+    view sum of the (2, 8, 32, 32, 2) fp32 cost volume, on 2 and 4 ranks.
+    The batch norms' eval-mode calls issue none."""
+    inputs, results = ranked
+    for r in results[2]:
+        assert r["bn_all_reduces"] == {"batch_norm": {"calls": 4, "bytes": 4 * 2 * 3 * 3 * 4}}
+    cost_bytes = inputs["cot"].numel() * 4
+    for world in (2, 4):
+        for r in results[world]:
+            assert r["view_all_reduces"] == {"view_sum": {"calls": 2, "bytes": 2 * cost_bytes}}
 
 
 @pytest.fixture(scope="module")
