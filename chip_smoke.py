@@ -39,7 +39,9 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    one batch of the same model against the same model with plain cost
    passes, and that each stage's depths lie inside the hypotheses they
    were regressed from; run_test's params / FLOPs / bytes line is kept
-   for phase 24 (its counted forward is one more launch set);
+   for phase 24 (its counted forward is one more launch set); the "main"
+   line carries the convolution problems cuDNN searched in run_test
+   ("conv_selections", ``blocks.conv_selections``);
    then kernel 1 as in phase 3 on the inputs that batch's six cost passes
    received ("inputs": "model eval");
 6. the training main path: the CLI at --preset dtu_train (512x640, 5 views,
@@ -198,7 +200,8 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    (``--rank-task spfold``) against the one-process folded forward (phase
    23's bounds).  Cost: phase 24's counts (a map, a train step) under the
    folded plan, equal to the unfolded counts;
-26. a "phases" line (wall seconds of each phase), a "kernels" JSON line
+26. a "phases" line (wall seconds of each phase, and the convolution
+   problems cuDNN searched over the whole smoke), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
    inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
    on each recipe path and "recipe_model_ms" on the recipes' tensors;
@@ -251,7 +254,7 @@ from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG
 from dmvsnet_tpu_torch.fusion.dtu_eval import eval_scan
 from dmvsnet_tpu_torch.fusion.ply import read_ply
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
-from dmvsnet_tpu_torch.models import folded, mvsnet
+from dmvsnet_tpu_torch.models import blocks, folded, mvsnet
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import epipolar_sweep as es
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
@@ -2922,11 +2925,13 @@ def main() -> None:
             print(f"scene: {time.perf_counter() - t0:.2f}s", flush=True)
             argv = eval_argv(tmp)
             cuda_build.reset_launches()
+            selections = blocks.conv_selections()
             t0 = time.perf_counter()
             with run_test_line() as line:
                 summary = cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            selections = blocks.conv_selections() - selections
             eval_launches = cuda_build.launches()
             expected = {"warp_correlate": 6 * run_test_forwards(-(-V // B)),
                         "warp_correlate_grad_ref": 0,
@@ -2939,7 +2944,7 @@ def main() -> None:
             batch, eval_captured = check_batch(cfg, dev)
             d = summary["dispatch_seconds"]
             main = dict(maps=summary["maps"], launches=eval_launches["warp_correlate"],
-                        run_test_wall_s=wall, dispatch_s=d,
+                        conv_selections=selections, run_test_wall_s=wall, dispatch_s=d,
                         ms_per_map_after_first_dispatch=1e3 * sum(d[1:]) / (V - B), **batch)
             print("main " + json.dumps(main), flush=True)
             # kernel 1 on the model's own cost-pass inputs
@@ -3044,8 +3049,8 @@ def main() -> None:
         for key in ("eval", "train", "bf16", "sp", "cost"):
             print(f"fold_{key} " + json.dumps(fold[key]), flush=True)
 
-    print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values())}),
-          flush=True)
+    print("phases " + json.dumps({"seconds": seconds, "total": sum(seconds.values()),
+                                  "conv_selections": blocks.conv_selections()}), flush=True)
     report(rows + adj_rows + resample_rows + sweep_rows + model, eval_launches, train_launches,
            epi_launches, fallback["launches"],
            dict(gate_overfit=gate["train_launches"], gate_test=gate["test_launches"],

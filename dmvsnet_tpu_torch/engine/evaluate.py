@@ -21,7 +21,8 @@ import cv2
 import numpy as np
 import torch
 
-from dmvsnet_tpu_torch import pin_fp32, resolve_device
+from dmvsnet_tpu_torch import (CONV_CANDIDATES, measured_conv_algorithms, pin_fp32,
+                               resolve_device)
 from dmvsnet_tpu_torch.config import Config
 from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
@@ -129,8 +130,11 @@ def run_test(cfg: Config, device: str | torch.device | None = None) -> dict:
                 dv = torch.from_numpy(dv_np).to(device)
                 if not summarized:
                     # the one-time params / FLOPs line (the reference's thop
-                    # print), counted on one forward of this batch, untimed
-                    s = model_summary(model, imgs, proj, dv)
+                    # print), counted on one forward of this batch, untimed;
+                    # the first to meet each convolution problem, it chooses
+                    # algorithms as the infer step does, which then keeps them
+                    with measured_conv_algorithms(CONV_CANDIDATES):
+                        s = model_summary(model, imgs, proj, dv)
                     print(f"params: {s['params']:,}  flops: {s['flops']:.3e}  "
                           f"bytes: {s['bytes_accessed']:.3e}", flush=True)
                     if model.warp_impl == "epipolar":

@@ -1,8 +1,7 @@
 """Where one eval forward, or one train step, spends its time on the card.
 
-    python3 -m dmvsnet_tpu_torch.engine.profiler [--batch 2] [--warp_impl epipolar] \\
-        [--tf32] [--cudnn-benchmark]
-    python3 -m dmvsnet_tpu_torch.engine.profiler --train [--tf32] [--cudnn-benchmark]
+    python3 -m dmvsnet_tpu_torch.engine.profiler [--batch 2] [--warp_impl epipolar] [--tf32]
+    python3 -m dmvsnet_tpu_torch.engine.profiler --train [--tf32]
 
 Both take the model options of the CLI: ``--compute_dtype``,
 ``--costreg_dtype``, ``--feature_dtype`` (auto | float32 | bfloat16),
@@ -13,18 +12,20 @@ and ``--fold``, which runs the folded level-0 plan
 Builds the DTU-eval MVSNet (864x1152, 5 views, ndepths 48/32/8, inverse
 depth, seeded random weights) on CUDA, or with ``--train`` the DTU-train
 one (512x640, 5 views, batch 2, ndepths 48/32/8, inverse depth, fp32, Adam)
-on one synthetic batch, and runs three forwards or train steps in one
-torch.profiler session after a warm-up.  Prints the device ms of one
+on one synthetic batch, and runs three forwards (``make_infer_step``) or
+train steps (``make_train_step``) in one torch.profiler session after a
+warm-up, as the program runs them: with cuDNN's algorithms chosen by
+measurement (``measured_conv_algorithms``).  Prints the device ms of one
 forward or step by program span (``utils/trace``: ``mvsnet.*`` per stage
 and pass, ``train.*`` per phase; what each span launched, on any thread)
 and by hand-written kernel (``warp_correlate``, its two adjoints, and
 with ``--warp_impl epipolar`` ``resample`` and ``sweep1d``), the peak
-device memory of one more, then the session's table of ops by device time.
+device memory of one more and ``conv_selections`` (the convolution
+problems cuDNN searched, all in the warm-up), then the session's table of
+ops by device time.
 
-Measures only: the port itself never sets
-``--tf32`` or ``--cudnn-benchmark`` (it pins fp32 and leaves cuDNN's
-algorithm choice at its default); the flags exist to measure what they
-would change.
+``--tf32`` measures only: the port itself pins fp32 (``pin_fp32``); the
+flag exists to measure what TF32 convolutions would change.
 
 Beside these tools, the JAX package's profiling API under its names
 (port of dmvsnet_tpu.engine.profiler, the counterpart of the reference's
@@ -53,8 +54,9 @@ from torch.utils.flop_counter import flop_registry
 from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.config import preset
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
-from dmvsnet_tpu_torch.engine.steps import make_train_step
+from dmvsnet_tpu_torch.engine.steps import make_infer_step, make_train_step
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
+from dmvsnet_tpu_torch.models import blocks
 from dmvsnet_tpu_torch.ops import cuda_build
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
 from dmvsnet_tpu_torch.utils import synthetic, trace
@@ -341,6 +343,7 @@ def main_train(args, device) -> None:
                                              cfg.milestones, cfg.lr_decay, cfg.epochs), cfg.wd)
     batch = _batch(cfg, cfg.batch_size, cfg.nviews, *cfg.img_size, device)
     step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
+    blocks.reset_conv_selections()
     times, table = breakdown(lambda: step(model, optimizer, scheduler, batch))
     torch.cuda.reset_peak_memory_stats()
     step(model, optimizer, scheduler, batch)
@@ -349,7 +352,8 @@ def main_train(args, device) -> None:
     print("train_breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
-        cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9, ms=times)), flush=True)
+        conv_selections=blocks.conv_selections(), peak_mem_gb=peak / 1e9, ms=times)),
+        flush=True)
     print(table, flush=True)
 
 
@@ -366,13 +370,10 @@ def main(argv=None) -> None:
     p.add_argument("--fold", action="store_true",
                    help="run the folded level-0 plan (fold_level0=True)")
     p.add_argument("--tf32", action="store_true", help="measure with TF32 convolutions")
-    p.add_argument("--cudnn-benchmark", action="store_true",
-                   help="measure with cuDNN's algorithm search")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     pin_fp32()
     torch.backends.cudnn.allow_tf32 = args.tf32
-    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     if args.train:
         main_train(args, device)
         return
@@ -381,11 +382,12 @@ def main(argv=None) -> None:
     model = build_train_model(cfg, device).eval()
     model.fold_level0 = True if args.fold else None
     inputs = synthetic_inputs(cfg, args.batch, device)
+    infer = make_infer_step()
 
     def forward():
-        with torch.inference_mode():
-            model(*inputs)
+        infer(model, *inputs)
 
+    blocks.reset_conv_selections()
     times, table = breakdown(forward)
     torch.cuda.reset_peak_memory_stats()
     forward()
@@ -393,7 +395,7 @@ def main(argv=None) -> None:
     print("breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
-        cudnn_benchmark=args.cudnn_benchmark, peak_mem_gb=peak / 1e9,
+        conv_selections=blocks.conv_selections(), peak_mem_gb=peak / 1e9,
         ms_per_map=times["mvsnet.forward"] / args.batch, ms=times)), flush=True)
     print(table, flush=True)
 

@@ -6,6 +6,10 @@ On a ``mesh`` (``parallel.make_mesh``) the loss and the metrics are those
 of the global batch and the returned scalars are reduced over the dp group
 before they are returned, so they are the same on every rank; the model of
 a train step is then wrapped in DDP, which averages the gradients.
+
+Every step runs inside ``measured_conv_algorithms``: cuDNN chooses each
+convolution's algorithm by measurement, the backward's included (among
+fewer candidates), the first time the step meets a convolution problem.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Callable
 
 import torch
 
+from dmvsnet_tpu_torch import (BACKWARD_CONV_CANDIDATES, CONV_CANDIDATES,
+                               measured_conv_algorithms)
 from dmvsnet_tpu_torch.losses import metrics as metrics_lib
 from dmvsnet_tpu_torch.losses.mvs_loss import mvs_loss
 from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA
@@ -46,14 +52,14 @@ def make_train_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression",
     """
 
     def train_step(model, optimizer, scheduler, batch):
-        with span("train.step"):
+        with measured_conv_algorithms(CONV_CANDIDATES), span("train.step"):
             model.train()
             optimizer.zero_grad(set_to_none=True)
             with span("train.forward"):
                 outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
             with span("train.loss"):
                 loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
-            with span("train.backward"):
+            with span("train.backward"), measured_conv_algorithms(BACKWARD_CONV_CANDIDATES):
                 loss.backward()
             with span("train.metrics"):
                 scalars = _scalars(outputs, batch, loss, dlossw, mesh)
@@ -72,11 +78,12 @@ def make_eval_step(dlossw=(0.5, 1.0, 2.0), depth_mode: str = "regression",
     in eval mode under ``torch.no_grad()``."""
 
     def eval_step(model, batch):
-        model.eval()
-        with torch.no_grad():
-            outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-            loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
-        scalars = _scalars(outputs, batch, loss, dlossw, mesh)
+        with measured_conv_algorithms(CONV_CANDIDATES):
+            model.eval()
+            with torch.no_grad():
+                outputs = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+                loss = mvs_loss(outputs, batch["depth"], batch["mask"], depth_mode, dlossw, mesh)
+            scalars = _scalars(outputs, batch, loss, dlossw, mesh)
         return scalars, outputs["depth"], outputs["photometric_confidence"]
 
     return eval_step
@@ -88,7 +95,7 @@ def make_infer_step() -> Callable:
     ``torch.inference_mode()``."""
 
     def infer_step(model, imgs, proj_matrices, depth_values):
-        with torch.inference_mode():
+        with measured_conv_algorithms(CONV_CANDIDATES), torch.inference_mode():
             outputs = model(imgs, proj_matrices, depth_values)
         return outputs["depth"], outputs["photometric_confidence"]
 

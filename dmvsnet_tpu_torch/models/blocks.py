@@ -34,6 +34,9 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
 * ``checkpoint`` is ``torch.utils.checkpoint`` for the model's remat: a
   batch norm recomputed in the backward updates no running statistic, so
   a step updates them once, as the step without remat does.
+* ``conv_selections`` counts the convolution problems the port's
+  convolutions met while cuDNN chose algorithms by measurement
+  (``dmvsnet_tpu_torch.measured_conv_algorithms``).
 
 Attribute names follow the reference layout (``.conv`` and ``.bn``), so a
 reference-named state dict loads as is.
@@ -83,6 +86,33 @@ def checkpoint(fn, *args):
     return torch_checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
         context_fn=lambda: (contextlib.nullcontext(), _recompute()))
+
+
+# the convolution problems met under measured algorithm choice
+_SELECTIONS: set[tuple] = set()
+
+
+def conv_selections() -> int:
+    """How many distinct convolution problems (kind, input shape, weight
+    shape, stride, padding, dtype, grad on or off) the port's convolutions
+    (the ``_Cast`` modules and ``models/folded.py``) met while
+    ``torch.backends.cudnn.benchmark`` was set, since the last reset.  On
+    the card cuDNN searches once for each of them (with grad on, once more
+    for each gradient of the backward) and keeps what it found for the life
+    of the process; a search in a timed stretch shows as a count that moved
+    in it."""
+    return len(_SELECTIONS)
+
+
+def reset_conv_selections() -> None:
+    _SELECTIONS.clear()
+
+
+def note_conv(kind: str, x: torch.Tensor, w: torch.Tensor, stride, padding) -> None:
+    """Counts the problem of a convolution about to run (``conv_selections``)."""
+    if torch.backends.cudnn.benchmark:
+        _SELECTIONS.add((kind, tuple(x.shape), tuple(w.shape), tuple(stride), padding,
+                         x.dtype, torch.is_grad_enabled()))
 
 
 class _BiasedRunningVar:
@@ -234,22 +264,23 @@ class _Cast:
         return spatial.halo_exchange(x, self.spatial, x.dim() - 2), tuple(padding)
 
 
+    def _convolve(self, fn, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = self._cast(x)
+        padding = self.padding
+        if self._banded():
+            x, padding = self._halo(x)
+        note_conv(type(self).__name__, x, w, self.stride, padding)
+        return fn(x, w, b, self.stride, padding, self.dilation, self.groups)
+
+
 class Conv2d(_Cast, nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = self._cast(x)
-        if not self._banded():
-            return self._conv_forward(x, w, b)
-        x, padding = self._halo(x)
-        return F.conv2d(x, w, b, self.stride, padding, self.dilation, self.groups)
+        return self._convolve(F.conv2d, x)
 
 
 class Conv3d(_Cast, nn.Conv3d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = self._cast(x)
-        if not self._banded():
-            return self._conv_forward(x, w, b)
-        x, padding = self._halo(x)
-        return F.conv3d(x, w, b, self.stride, padding, self.dilation, self.groups)
+        return self._convolve(F.conv3d, x)
 
 
 class _Transpose(_Cast):
@@ -262,12 +293,14 @@ class _Transpose(_Cast):
     def _transpose(self, fn, x: torch.Tensor) -> torch.Tensor:
         x, w, b = self._cast(x)
         if not self._banded():
+            note_conv(type(self).__name__, x, w, self.stride, self.padding)
             return fn(x, w, b, self.stride, self.padding, self.output_padding, self.groups,
                       self.dilation)
         n = x.shape[-2]
         x, padding = self._halo(x)
         output_padding = list(self.output_padding)
         output_padding[-2] = 0
+        note_conv(type(self).__name__, x, w, self.stride, padding)
         y = fn(x, w, b, self.stride, padding, tuple(output_padding), self.groups, self.dilation)
         s = self.stride[-2]
         return y.narrow(-2, s + self.padding[-2], s * n)

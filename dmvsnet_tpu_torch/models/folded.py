@@ -248,12 +248,15 @@ def _conv2d(conv, x: torch.Tensor, kern: torch.Tensor, bias, pad) -> torch.Tenso
     if conv.spatial is not None and spatial.rows_split():
         n = x.shape[2]
         x = spatial.halo_exchange(x, conv.spatial, 2).narrow(2, 1 - lo, n + lo + hi)
-        if lo == hi:
-            return F.conv2d(x, kern, bias, padding=(0, lo))
-        return F.conv2d(F.pad(x, (lo, hi)), kern, bias)
-    if lo == hi:
-        return F.conv2d(x, kern, bias, padding=lo)
-    return F.conv2d(F.pad(x, (lo, hi, lo, hi)), kern, bias)
+        padding = (0, lo)
+        if lo != hi:
+            x, padding = F.pad(x, (lo, hi)), (0, 0)
+    elif lo == hi:
+        padding = (lo, lo)
+    else:
+        x, padding = F.pad(x, (lo, hi, lo, hi)), (0, 0)
+    blocks.note_conv("folded", x, kern, (1, 1), padding)
+    return F.conv2d(x, kern, bias, padding=padding)
 
 
 def _tiled_bias(conv, g: int):
