@@ -20,6 +20,13 @@ program's ``engine/profiler.cost_analysis`` gives (held by
 * Bytes: each op's tensor arguments and outputs at their logical size,
   except views, aliases and allocations; write-only ops their outputs;
   each cost pass its least bytes.
+
+A cost pass is every call of ``reference.model.cost_pass`` made while the
+count runs, looked up through that module at the call: a reference that
+calls ``model.cost_pass`` once per (reference, source) pair is counted per
+pair.  The count also records each pass's shape, in the order of the
+forward calls (``Counter.passes``), which kernel 1's least time is summed
+from (``warp_correlate_least_seconds``).
 """
 
 from __future__ import annotations
@@ -119,12 +126,16 @@ def _op_bytes(func, args, kwargs, out) -> int:
 
 class Counter(TorchDispatchMode):
     """Counts every aten op by kind while active, except inside
-    ``suspend()``; ``add`` takes the cost passes' canonical counts."""
+    ``suspend()``; ``add`` takes the cost passes' canonical counts.
+    ``passes`` holds each cost pass in the order of the forward calls:
+    ``{"shape": (b, v, d, h, w, c), "adjoint": bool}``, ``adjoint`` set once
+    the backward has counted the pass's adjoints."""
 
     def __init__(self):
         super().__init__()
         self.flops: dict[str, int] = defaultdict(int)
         self.bytes: dict[str, int] = defaultdict(int)
+        self.passes: list[dict] = []
         self._suspended = 0
 
     @contextlib.contextmanager
@@ -138,6 +149,13 @@ class Counter(TorchDispatchMode):
     def add(self, kind: str, nbytes: int, flops: int) -> None:
         self.bytes[kind] += nbytes
         self.flops[kind] += flops
+
+    def add_pass(self, shape: tuple[int, ...]) -> dict:
+        """Counts one cost pass's forward at ``shape`` and records it."""
+        self.add("cost_pass", *pass_cost(*shape))
+        entry = {"shape": shape, "adjoint": False}
+        self.passes.append(entry)
+        return entry
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -162,7 +180,7 @@ class _CountedPass(torch.autograd.Function):
     def forward(ctx, counter, feats, rel, depth):
         with counter.suspend():
             out = _PLAIN_PASS(feats, rel, depth)
-        counter.add("cost_pass", *pass_cost(*_shape(feats, depth)))
+        ctx.entry = counter.add_pass(_shape(feats, depth))
         ctx.counter = counter
         ctx.save_for_backward(feats, rel, depth)
         return out
@@ -173,8 +191,9 @@ class _CountedPass(torch.autograd.Function):
         with ctx.counter.suspend(), torch.enable_grad():
             f = feats.detach().requires_grad_()
             (grad,) = torch.autograd.grad(_PLAIN_PASS(f, rel, depth), f, cot.contiguous())
-        for cost in adjoint_cost(*_shape(feats, depth)):
+        for cost in adjoint_cost(*ctx.entry["shape"]):
             ctx.counter.add("cost_pass_adjoint", *cost)
+        ctx.entry["adjoint"] = True
         return None, grad, None, None
 
 
@@ -192,7 +211,7 @@ def counting():
             return _CountedPass.apply(counter, feats, rel, depth)
         with counter.suspend():
             out = _PLAIN_PASS(feats, rel, depth)
-        counter.add("cost_pass", *pass_cost(*_shape(feats, depth)))
+        counter.add_pass(_shape(feats, depth))
         return out
 
     ref_model.cost_pass = counted
@@ -203,41 +222,37 @@ def counting():
         ref_model.cost_pass = _PLAIN_PASS
 
 
-def eval_cost(model, imgs, proj, depth_values) -> dict[str, float]:
-    """FLOPs and bytes of one eval forward of the reference ``model`` on a
-    batch (under ``no_grad``, the model in eval mode)."""
+def eval_counter(model, imgs, proj, depth_values) -> Counter:
+    """The count of one eval forward of the reference ``model`` on a batch
+    (under ``no_grad``, the model in eval mode)."""
     model.eval()
     with torch.no_grad(), counting() as counter:
         model(imgs, proj, depth_values)
-    return counter.totals()
+    return counter
 
 
-def train_cost(model, batch: dict, loss_fn) -> dict[str, float]:
-    """FLOPs and bytes of one training forward, loss and backward of the
+def train_counter(model, batch: dict, loss_fn) -> Counter:
+    """The count of one training forward, loss and backward of the
     reference ``model`` (train mode): ``loss_fn(outputs, batch)`` is the
     loss.  The optimizer's update is not counted."""
     model.train()
     with counting() as counter:
         out = model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
         loss_fn(out, batch).backward()
-    return counter.totals()
+    return counter
 
 
-def warp_correlate_least_seconds(config: dict, workload: dict, peak_flops: float,
-                                 peak_bytes: float, backward: bool = False) -> float:
-    """The least time of one batch's six cost passes (forward kernel, or
-    with ``backward`` the two adjoint kernels) at the cell's shapes: per
-    pass the larger of its bytes over ``peak_bytes`` and its operations
-    over ``peak_flops``, summed."""
-    b, v = workload["batch"], workload["views"]
-    h, w = workload["height"], workload["width"]
-    n = len(config["ndepths"])
+def warp_correlate_least_seconds(passes: list[dict], peak_flops: float, peak_bytes: float,
+                                 backward: bool = False) -> float:
+    """The least time of the cost passes that a count recorded
+    (``Counter.passes``; forward kernel, or with ``backward`` the two adjoint
+    kernels of each pass whose adjoints were counted): per pass the larger
+    of its bytes over ``peak_bytes`` and its operations over ``peak_flops``,
+    summed in the order of the forward calls."""
     total = 0.0
-    for s, d in enumerate(config["ndepths"]):
-        scale = 2 ** (n - s - 1)
-        c = config["base_channels"] * 2 ** (n - 1 - s)
-        for planes in (d, 4):
-            shape = (b, v, planes, h // scale, w // scale, c)
-            costs = adjoint_cost(*shape) if backward else [pass_cost(*shape)]
-            total += sum(max(nb / peak_bytes, fl / peak_flops) for nb, fl in costs)
+    for p in passes:
+        if backward and not p["adjoint"]:
+            continue
+        costs = adjoint_cost(*p["shape"]) if backward else [pass_cost(*p["shape"])]
+        total += sum(max(nb / peak_bytes, fl / peak_flops) for nb, fl in costs)
     return total

@@ -7,15 +7,24 @@ metric is a file of its own that this module finds by name:
 and ``metrics/<metric>.py`` under the benchmark's folder, and the metric
 and cell entries of ``BENCHMARK.json`` at the checkout's root.
 
-A mode module provides ``setup(ctx) -> state`` (program, weights, inputs,
+A mode module provides ``KIND`` (``"infer"`` or ``"train"``: what a
+per-layer reader gates on, so that a new mode of a kind is read by that
+kind's readers), ``setup(ctx) -> state`` (program, weights, inputs,
 warm-up), ``iterate(state)`` (one dispatch or step of the window),
 ``drain(state)`` (waits for what the window issued), ``end_to_end(state,
 window_s) -> {metric: value}``, ``units(state)`` (maps or samples completed
 in the window), ``info(state)`` (launches, build seconds, set-up phases for
 the ``info`` line), ``spans(state, spans, stack)`` (installs the traced run's
-spans), ``count(state) -> operations per unit`` (the frozen count) and
-``check(state) -> ({number: value}, failed)`` (the comparison with the
-reference, after the window).
+spans), ``count(state) -> (operations per unit, cost passes)`` (the frozen
+count through the configuration's reference, ``reference_module``) and
+``check(state) -> ({number: value}, failed)`` (the comparison with that
+reference, after the window; what it leaves in ``state.check_notes`` is
+printed on the run's ``checked`` line beside the check's seconds).  A mode that runs on several cards also
+provides ``memory_peaks(state)`` (each card's peak, rank 0's first) and
+``profiled(state, path, cuda)`` (a context manager over the traced
+sub-window that yields a list, holding at its exit every card's trace
+summary, rank 0's first); without them the harness reads this process's
+card alone.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,13 +51,15 @@ BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 # top-level module names that must not be loaded in a run (compared whole)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dmvsnet_tpu")
+NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
 
 
 @dataclass
 class Context:
     """What a mode's set-up is given: the cell's files, the seed, the
-    device, and ``options`` (empty in a benchmark run; the control and the
-    fault checks of ``mvsbench/calibrate.py`` and the tests set them)."""
+    device, ``options`` (empty in a benchmark run; the control and the
+    fault checks of ``mvsbench/calibrate.py`` and the tests set them) and
+    the benchmark's folder."""
 
     name: str
     workload: dict
@@ -55,6 +67,7 @@ class Context:
     seed: int
     device: str
     options: dict = field(default_factory=dict)
+    bench_dir: str = str(BENCH_DIR)
 
     @property
     def cuda(self) -> bool:
@@ -81,6 +94,20 @@ def mode_module(mode: str, bench_dir: Path = BENCH_DIR):
 
 def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     return _module(bench_dir / "metrics" / f"{name}.py", f"mvsbench_metric_{name}").read
+
+
+def reference_module(config: dict, bench_dir: Path | str = BENCH_DIR):
+    """The reference module of a configuration (its ``"reference"`` key,
+    else ``model``): ``mvsbench.reference.<name>`` where this package holds
+    it, else ``<bench_dir>/reference/<name>.py``.  It provides
+    ``build(config, device)`` and, where its loss is not
+    ``reference/loss.py``'s, ``mvs_loss``."""
+    name = config.get("reference", "model")
+    if not NAME.match(name):
+        raise ValueError(f"reference {name!r} is not a module name")
+    if (BENCH_DIR / "reference" / f"{name}.py").is_file():
+        return importlib.import_module(f"mvsbench.reference.{name}")
+    return _module(Path(bench_dir) / "reference" / f"{name}.py", f"mvsbench_reference_{name}")
 
 
 def cell_files(name: str, bench_dir: Path = BENCH_DIR) -> tuple[dict, dict]:
@@ -131,15 +158,41 @@ class Reading:
     """What a per-layer reader is given (``metrics/<name>.py: read``)."""
 
     mode: str
+    kind: str               # the mode's KIND, what readers gate on
     workload: dict
     config: dict
     units: int              # maps (infer) or samples (train) in the window
     window_s: float         # the measured window of the traced run
     span_ms: dict           # summed span milliseconds over that window
-    trace: dict | None      # trace.summarise of the sub-window
+    traces: list            # trace.summarise of the sub-window on every card, rank 0's first
     sub_iterations: int     # dispatches or steps inside the sub-window
     ops_per_unit: float | None
-    peaks: dict | None      # this card's row of counts/peaks.json
+    peaks: dict | None      # one card's row of counts/peaks.json
+    passes: list            # the count's cost passes (counts.Counter)
+
+    @property
+    def trace(self) -> dict | None:
+        """Rank 0's summary (this process's card)."""
+        return self.traces[0] if self.traces else None
+
+
+def idle_pct(summary: dict) -> float:
+    """The share of a traced sub-window in which the card ran nothing."""
+    return 100.0 * (1.0 - summary["busy_s"] / summary["window_s"])
+
+
+def _memory_peaks(state) -> list[int]:
+    """This process's card's peak (0 on the CPU)."""
+    return [torch.cuda.max_memory_allocated() if state.device.type == "cuda" else 0]
+
+
+@contextlib.contextmanager
+def _profiled(state, path: str, cuda: bool):
+    """The traced sub-window of this process's card."""
+    summaries = []
+    with trace_lib.profiled(path, cuda):
+        yield summaries
+    summaries.append(trace_lib.summarise(path))
 
 
 def peaks_for(device_name: str, bench_dir: Path = BENCH_DIR) -> dict | None:
@@ -159,7 +212,7 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: str = "cuda"
     workload, config = cell_files(name, bench_dir)
     e2e_entries, layer_entries = cell_metrics(bench, name)
     mode = mode_module(workload["mode"], bench_dir)
-    ctx = Context(name, workload, config, seed, device, dict(options or {}))
+    ctx = Context(name, workload, config, seed, device, dict(options or {}), str(bench_dir))
     cuda = ctx.cuda
 
     state = mode.setup(ctx)
@@ -175,27 +228,36 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: str = "cuda"
         window_s = time.perf_counter() - t0
         span_ms = spans.totals_ms() if traced else {}
     units = mode.units(state)
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = getattr(mode, "memory_peaks", _memory_peaks)(state)
+    peak = max(peaks)
 
-    summary, sub = None, 0
+    summaries, sub = [], 0
     if traced:
         sub = int(workload["trace_iterations"])
         path = str(bench_dir / ".cache" / "trace" / f"{name}.json")
-        with trace_lib.profiled(path, cuda):
+        with getattr(mode, "profiled", _profiled)(state, path, cuda) as summaries:
             for _ in range(sub):
                 mode.iterate(state)
             mode.drain(state)
-        summary = trace_lib.summarise(path)
 
     dev_name = torch.cuda.get_device_name(0) if cuda else "cpu"
     info = {"cell": name, "seed": seed, "card": card() if cuda else None,
             "window_s": window_s, "units": units, "memory_peak_bytes": peak, **mode.info(state)}
+    if len(peaks) > 1:
+        info["by_rank"] = {"memory_peak_bytes": peaks}
+        if summaries:
+            info["by_rank"]["idle_pct"] = [idle_pct(t) for t in summaries]
+    if traced:
+        ops_per_unit, passes = mode.count(state)
+        info["count"] = {"ops_per_unit": ops_per_unit,
+                         "passes": [[*p["shape"], p["adjoint"]] for p in passes]}
     log("info " + json.dumps(info), flush=True)
 
     metrics = {}
     if traced:
-        reading = Reading(workload["mode"], workload, config, units, window_s, span_ms, summary,
-                          sub, mode.count(state), peaks_for(dev_name, bench_dir))
+        reading = Reading(workload["mode"], mode.KIND, workload, config, units, window_s,
+                          span_ms, summaries, sub, ops_per_unit, peaks_for(dev_name, bench_dir),
+                          passes)
         for m in layer_entries:
             value = metric_reader(m["name"], bench_dir)(reading)
             if value is not None:
@@ -206,7 +268,10 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: str = "cuda"
         for m in e2e_entries:
             metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
 
+    t_check = time.perf_counter()
     numbers, failed = mode.check(state)
+    log("checked " + json.dumps({"check_s": time.perf_counter() - t_check,
+                                 **getattr(state, "check_notes", {})}), flush=True)
     del state
     gc.collect()
     if cuda:
@@ -219,8 +284,10 @@ def run(name: str, seed: int, seconds: float, traced: bool, device: str = "cuda"
               "device": {"platform": "gpu" if cuda else "cpu", "kind": dev_name,
                          "count": int(workload["chips"]), "memory_peak_bytes": peak}}
     if traced:
-        result["device"].update(busy_s=summary["busy_s"], window_s=summary["window_s"])
-        result["breakdown"] = {"device_ops": summary["device_ops"],
-                               "idle_gaps": summary["idle_gaps"]}
+        # averaged over the cards, so that 1 - busy / window is their mean idle share
+        result["device"].update(busy_s=sum(t["busy_s"] for t in summaries) / len(summaries),
+                                window_s=sum(t["window_s"] for t in summaries) / len(summaries))
+        result["breakdown"] = {"device_ops": summaries[0]["device_ops"],
+                               "idle_gaps": summaries[0]["idle_gaps"]}
     result["checks"] = checks
     return result

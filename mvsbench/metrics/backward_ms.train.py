@@ -4,6 +4,6 @@ benchmark records around ``Tensor.backward`` over the traced run's window."""
 
 
 def read(r):
-    if r.mode != "train" or not r.units or "backward" not in r.span_ms:
+    if r.kind != "train" or not r.units or "backward" not in r.span_ms:
         return None
     return r.span_ms["backward"] / (r.units / r.workload["batch"])

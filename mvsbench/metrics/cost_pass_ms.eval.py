@@ -7,6 +7,6 @@ SPAN = "cost_pass"
 
 
 def read(r):
-    if r.mode != "infer" or not r.units or SPAN not in r.span_ms:
+    if r.kind != "infer" or not r.units or SPAN not in r.span_ms:
         return None
     return r.span_ms[SPAN] / r.units

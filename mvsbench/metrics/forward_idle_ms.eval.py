@@ -7,7 +7,7 @@ from mvsbench import program_spans
 
 
 def read(r):
-    if r.mode != "infer" or not r.sub_iterations:
+    if r.kind != "infer" or not r.sub_iterations:
         return None
     red = program_spans.reduction(r)
     if not red or "mvsnet.forward" not in red["idle_ms"]:

@@ -7,7 +7,7 @@ from mvsbench import program_spans
 
 
 def read(r):
-    if r.mode != "infer" or not r.sub_iterations:
+    if r.kind != "infer" or not r.sub_iterations:
         return None
     red = program_spans.reduction(r)
     ms = red and program_spans.summed(red["self_ms"], "mvsnet.s*.sample", "mvsnet.s*.*.head")

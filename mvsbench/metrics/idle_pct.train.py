@@ -1,10 +1,13 @@
 """idle_pct.train: the share of the traced sub-window in which no kernel,
-memcpy or memset ran on the card, from the torch.profiler trace."""
+memcpy or memset ran on the card, from the torch.profiler trace; on a cell
+of several cards, the mean of every card's share."""
 
-MODE = "train"
+from mvsbench.harness import idle_pct
+
+KIND = "train"
 
 
 def read(r):
-    if r.mode != MODE or not r.trace or r.trace["busy_s"] <= 0:
+    if r.kind != KIND or not r.traces or any(t["busy_s"] <= 0 for t in r.traces):
         return None
-    return 100.0 * (1.0 - r.trace["busy_s"] / r.trace["window_s"])
+    return sum(idle_pct(t) for t in r.traces) / len(r.traces)

@@ -7,7 +7,7 @@ from mvsbench import program_spans
 
 
 def read(r):
-    if r.mode != "train" or not r.sub_iterations:
+    if r.kind != "train" or not r.sub_iterations:
         return None
     red = program_spans.reduction(r)
     ms = red and program_spans.summed(red["total_ms"], "train.optimizer")

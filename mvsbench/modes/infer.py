@@ -7,8 +7,9 @@ dispatch of the window is ``run_test``'s: the host arrays of one batch to
 the device, ``engine.steps.make_infer_step()``, depth and confidence back
 to host arrays.  The window cycles through the pool's batches.
 
-What is compared with the reference (``mvsbench/reference``, fp32, TF32
-off, on the same weights and inputs) once the window has closed: the final
+What is compared with the configuration's reference
+(``harness.reference_module``: ``mvsbench/reference``, fp32, TF32 off, on
+the same weights and inputs) once the window has closed: the final
 depth of every dispatch of the window, and each stage's depth and
 probability volume of the last dispatch of each batch (a forward hook keeps
 references to them; it does no device work).
@@ -37,11 +38,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from mvsbench import program, weights
+from mvsbench import harness, program, weights
 from mvsbench.counts import cost as counts
-from mvsbench.reference import model as reference
 from mvsbench.traffic import scenes
 
+KIND = "infer"
 SCENE_SEED_OFFSET = 1_000_003
 
 
@@ -133,10 +134,14 @@ def spans(state, spans, stack) -> None:
     wrap(warp_correlate, "aggregate_cost_volume", spans, "cost_pass", stack)
 
 
+def _build_reference(ctx, device):
+    return harness.reference_module(ctx.config, ctx.bench_dir).build(ctx.config, device)
+
+
 def _reference(state):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref = reference.build(state.ctx.config, state.device)
+    ref = _build_reference(state.ctx, state.device)
     ref.load_state_dict(state.sd)
     return ref.eval()
 
@@ -147,17 +152,17 @@ def _inputs(state, host):
             to(host["depth_values"]))
 
 
-def count(state) -> float:
+def count(state) -> tuple[float, list[dict]]:
     """The frozen count of operations per map at the cell's shapes, on the
-    meta device."""
+    meta device, and the cost passes of one dispatch."""
     host = state.batches[0]
-    ref = reference.build(state.ctx.config, "meta")
+    ref = _build_reference(state.ctx, "meta")
     meta = lambda a: torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,  # noqa: E731
                                  device="meta")
     imgs = meta(host["imgs"])
     proj = {k: meta(v) for k, v in host["proj_matrices"].items()}
-    return counts.eval_cost(ref, imgs, proj, meta(host["depth_values"]))["flops"] \
-        / state.ctx.workload["batch"]
+    counter = counts.eval_counter(ref, imgs, proj, meta(host["depth_values"]))
+    return counter.totals()["flops"] / state.ctx.workload["batch"], counter.passes
 
 
 def check(state) -> tuple[dict, int]:

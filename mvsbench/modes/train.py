@@ -9,9 +9,10 @@ feed, on three batches whose rows all differ.  That same object then runs
 the window: batches moved as ``Trainer.to_device`` moves them, no sync per
 step, scalars accumulated on the device.
 
-The reference (``mvsbench/reference``: plain model, loss and Adam, fp32,
-TF32 off) follows the first three steps from the same weights on the same
-batches.  Compared, once the window has closed:
+The reference (the configuration's, ``harness.reference_module``: plain
+model and loss, ``mvsbench/reference/loss.py``'s Adam, fp32, TF32 off)
+follows the first three steps from the same weights on the same batches.
+Compared, once the window has closed:
 
 * ``loss``: the largest relative gap of the three steps' losses;
 * ``grad``: the first gradient, as the optimizer got it (Adam's first
@@ -25,6 +26,9 @@ batches.  Compared, once the window has closed:
 * ``stats``: the batch norms' running statistics' change in the first
   step, by the worst buffer, the same measure (over three steps the
   parameters' round-off, amplified by Adam's first steps, dominates it).
+
+The run's ``checked`` line names the parameter or buffer that gave each of
+the last three.
 """
 
 from __future__ import annotations
@@ -36,12 +40,13 @@ from types import SimpleNamespace
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
-from mvsbench import program, weights
+from mvsbench import harness, program, weights
 from mvsbench.counts import cost as counts
 from mvsbench.reference import loss as ref_loss
 from mvsbench.reference import model as reference
 from mvsbench.traffic import scenes
 
+KIND = "train"
 SCENE_SEED_OFFSET = 1_000_003
 CHECKED_STEPS = 3
 BETA1 = 0.9
@@ -173,8 +178,14 @@ def spans(state, spans, stack) -> None:
     wrap(torch.Tensor, "backward", spans, "backward", stack)
 
 
-def _loss_fn(cfg):
-    return lambda out, batch: ref_loss.mvs_loss(out, batch["depth"], batch["mask"], cfg.dlossw)
+def _reference(ctx, device):
+    """The configuration's reference model on ``device`` and its loss
+    ``(outputs, batch) -> loss``."""
+    module = harness.reference_module(ctx.config, ctx.bench_dir)
+    mvs_loss = getattr(module, "mvs_loss", ref_loss.mvs_loss)
+    dlossw = tuple(ctx.config["dlossw"])
+    return module.build(ctx.config, device), \
+        lambda out, batch: mvs_loss(out, batch["depth"], batch["mask"], dlossw)
 
 
 def _device_batch(host, device):
@@ -184,10 +195,11 @@ def _device_batch(host, device):
     return {k: to(v) for k, v in host.items()}
 
 
-def count(state) -> float:
+def count(state) -> tuple[float, list[dict]]:
     """The frozen count of operations per sample of one training step
-    (forward, loss, backward) at the cell's shapes, on the meta device."""
-    ref = reference.build(state.ctx.config, "meta")
+    (forward, loss, backward) at the cell's shapes, on the meta device, and
+    the cost passes of one step."""
+    ref, loss_fn = _reference(state.ctx, "meta")
     host = state.ref_batches[0]
 
     def meta(v):
@@ -197,28 +209,31 @@ def count(state) -> float:
     batch = {k: meta(v) for k, v in host.items()}
     for p in ref.parameters():
         p.requires_grad_(True)
-    return counts.train_cost(ref, batch, _loss_fn(state.cfg))["flops"] / \
-        state.ctx.workload["batch"]
+    counter = counts.train_counter(ref, batch, loss_fn)
+    return counter.totals()["flops"] / state.ctx.workload["batch"], counter.passes
 
 
-def _worst(prog: dict, want: dict, names) -> float:
-    """max over ``names`` of |‖prog‖ - ‖want‖| / max(‖want‖, median ‖want‖);
-    a name missing from ``prog`` reads as a zero norm."""
+def _worst(prog: dict, want: dict, names) -> tuple[float, str]:
+    """max over ``names`` of |‖prog‖ - ‖want‖| / max(‖want‖, median ‖want‖),
+    and the name that gives it; a name missing from ``prog`` reads as a zero
+    norm."""
     norms = {n: float(want[n].norm()) for n in names}
     med = sorted(norms.values())[len(norms) // 2]
     got = {n: float(prog[n].norm()) if n in prog else 0.0 for n in names}
-    return max(abs(got[n] - norms[n]) / max(norms[n], med, 1e-30) for n in names)
+    gaps = {n: abs(got[n] - norms[n]) / max(norms[n], med, 1e-30) for n in names}
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
 
 
 def check(state) -> tuple[dict, int]:
-    w, cfg = state.ctx.workload, state.cfg
+    w = state.ctx.workload
     theta0, theta3, grad1 = state.theta0, state.theta3, state.grad1
     state.model = state.net = state.optimizer = None
     if state.device.type == "cuda":
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ref = reference.build(state.ctx.config, state.device)
+    ref, loss_fn = _reference(state.ctx, state.device)
     ref.load_state_dict(state.sd)
     ref.train()
     params = dict(ref.named_parameters())
@@ -236,7 +251,7 @@ def check(state) -> tuple[dict, int]:
             for p in params.values():
                 p.grad = None
             out = ref(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
-            loss = ref_loss.mvs_loss(out, batch["depth"], batch["mask"], cfg.dlossw)
+            loss = loss_fn(out, batch)
             loss.backward()
             del out, batch
             losses.append(float(loss.detach()))
@@ -254,12 +269,12 @@ def check(state) -> tuple[dict, int]:
     med = sorted(norms.values())[len(norms) // 2]
     moving = [n for n in names if norms[n] >= 1e-3 * med]
     delta = lambda th: {n: th[n] - theta0[n] for n in th}  # noqa: E731
-    numbers = {
-        "loss": max(abs(a - b) / abs(b) for a, b in zip(state.losses, losses)),
-        "grad": _worst(grad1, grads, names),
-        "update": _worst(delta(theta3), delta(theta_ref), moving),
-        "stats": _worst(delta(state.stats1), delta(stats1), list(stats1)),
-    }
+    worst = {"grad": _worst(grad1, grads, names),
+             "update": _worst(delta(theta3), delta(theta_ref), moving),
+             "stats": _worst(delta(state.stats1), delta(stats1), list(stats1))}
+    numbers = {"loss": max(abs(a - b) / abs(b) for a, b in zip(state.losses, losses)),
+               **{k: v for k, (v, _) in worst.items()}}
     state.ref_losses = losses
+    state.check_notes = {"worst": {k: n for k, (_, n) in worst.items()}}
     correct = all(v <= w["limits"][k] for k, v in numbers.items())
     return numbers, 0 if correct else units(state)

@@ -13,6 +13,12 @@ The operations are the program's, in the program's order, so that
 ``engine/profiler.cost_analysis`` counts the program.  The cost pass is
 ``cost_pass`` below, which ``mvsbench/counts`` replaces while it counts.
 
+A configuration whose program aggregates views otherwise names a reference
+module of its own (``"reference"``; ``mvsbench/README.md``): it may
+sub-class ``MVSNet``, override ``cost_volume`` calling ``model.cost_pass``
+(through this module, so that the count sees each call) and pass its class
+to ``build``.
+
 Layouts: imgs (B, V, H, W, 3), view 0 the reference; proj_matrices
 {"stage1".."stage3": (B, V, 2, 4, 4)}; depth_values (B, D0).
 """
@@ -457,7 +463,8 @@ class MVSNet(nn.Module):
 
             def volume(key, dv):
                 rel = relative_projections(proj2)
-                return cost_pass(feats[key].float().contiguous(), rel, dv.contiguous())
+                return self.cost_volume(s, key.endswith("_c"), feats[key].float().contiguous(),
+                                        rel, dv.contiguous())
 
             def regularize(cost, reg):
                 out = reg(cost.to(torch.float32).permute(0, 4, 1, 2, 3).contiguous())
@@ -475,10 +482,18 @@ class MVSNet(nn.Module):
         return outputs
 
 
-def build(config: dict, device) -> MVSNet:
-    """The reference model of a configuration file's dict, uninitialised on
-    ``device`` (the benchmark loads its weights)."""
+    def cost_volume(self, stage: int, refine: bool, feats, rel, depth) -> torch.Tensor:
+        """Stage ``stage``'s cost volume of the main or the ``refine`` pass:
+        (B, V, H, W, C) features, (B, V-1, 3, 4) relative projections and
+        (B, D, H, W) hypotheses -> (B, D, H, W, 2).  Here one cost pass over
+        every view; a reference of another aggregation overrides this."""
+        return cost_pass(feats, rel, depth)
+
+
+def build(config: dict, device, cls: type[MVSNet] = MVSNet) -> MVSNet:
+    """The reference model ``cls`` of a configuration file's dict,
+    uninitialised on ``device`` (the benchmark loads its weights)."""
     with torch.device("meta"):
-        model = MVSNet(config["ndepths"], config["interval_ratio"], config["inverse_depth"],
-                       config["base_channels"], config["cr_base_channels"])
+        model = cls(config["ndepths"], config["interval_ratio"], config["inverse_depth"],
+                    config["base_channels"], config["cr_base_channels"])
     return model.to_empty(device=device)

@@ -36,9 +36,10 @@ def _threads():
 def tiny_bench(tmp_path):
     """A copy of the benchmark's folder and ``BENCHMARK.json`` in a temporary
     checkout root, with a ``tiny`` configuration (8/8/8 planes) and, for each
-    cell ``<c>``, a cell ``tiny_<c>`` at 64x96 and 3 views that keeps the
-    cell's batch, traffic and limits; ``BENCHMARK.json``'s metrics list the
-    tiny cells.  Returns (root, benchmark folder)."""
+    workload file ``<c>``, a cell ``tiny_<c>`` at 64x96 and 3 views that
+    keeps the cell's batch, traffic and limits; ``BENCHMARK.json``'s metrics
+    list the tiny cells of the cells it has.  Returns (root, benchmark
+    folder)."""
     bench = tmp_path / "mvsbench"
     shutil.copytree(REPO / "mvsbench", bench,
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
@@ -47,10 +48,10 @@ def tiny_bench(tmp_path):
         cfg["ndepths"] = [8, 8, 8]
         (bench / "configs" / f"tiny_{name}.json").write_text(json.dumps(cfg))
     doc = json.loads((REPO / "BENCHMARK.json").read_text())
-    for cell in doc["workloads"]:
-        w = json.loads((bench / "workloads" / f"{cell['name']}.json").read_text())
+    for path in sorted((bench / "workloads").glob("*.json")):
+        w = json.loads(path.read_text())
         w.update(config=f"tiny_{w['config']}", **TINY)
-        (bench / "workloads" / f"tiny_{cell['name']}.json").write_text(json.dumps(w))
+        (bench / "workloads" / f"tiny_{path.name}").write_text(json.dumps(w))
     for m in doc["end_to_end"] + doc["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [f"tiny_{c}" for c in m["workloads"]]

@@ -19,7 +19,9 @@ import pytest
 from mvsbench import faults, harness
 
 FAULTS = {"dtu_eval": ["altered", "half_batch"], "tank_eval": ["altered"],
-          "dtu_train": ["altered", "half_batch", "unchanged"]}
+          "dtu_train": ["altered", "half_batch", "unchanged"],
+          # no_exchange: test_mvsbench_ddp.py
+          "dtu_train_dp4": ["altered", "half_batch", "unchanged"]}
 SEED = 2_147_483_659  # above 2**31
 
 

@@ -68,7 +68,8 @@ def _counts(cell: str, device, **sizes) -> dict:
             out["program"] = profiler.cost_analysis(model, *args)
         for where, b in (("frozen_meta", meta), ("frozen_device", batch)):
             ref = reference.build(config, "meta" if b is meta else device)
-            out[where] = counts.eval_cost(ref, b["imgs"], b["proj_matrices"], b["depth_values"])
+            out[where] = counts.eval_counter(ref, b["imgs"], b["proj_matrices"],
+                                           b["depth_values"]).totals()
         return out
     model.train()
 
@@ -83,8 +84,9 @@ def _counts(cell: str, device, **sizes) -> dict:
             ref.load_state_dict(model.state_dict())
         for p in ref.parameters():
             p.requires_grad_(True)
-        out[where] = counts.train_cost(
-            ref, b, lambda o, bb: ref_loss.mvs_loss(o, bb["depth"], bb["mask"], cfg.dlossw))
+        out[where] = counts.train_counter(
+            ref, b, lambda o, bb: ref_loss.mvs_loss(o, bb["depth"], bb["mask"], cfg.dlossw)
+        ).totals()
     return out
 
 
@@ -115,3 +117,51 @@ def test_frozen_count_equals_the_programs_at_the_cells_shapes(card, cell):
     got = _counts(cell, card)
     print("counts " + json.dumps(got), flush=True)
     _check(got)
+
+
+def _formula_least_seconds(config: dict, workload: dict, peak_flops: float, peak_bytes: float,
+                           backward: bool = False) -> float:
+    """Kernel 1's least time as it was worked out before the count recorded
+    its passes: six passes of every view at the shapes the configuration
+    and the cell imply."""
+    b, v = workload["batch"], workload["views"]
+    h, w = workload["height"], workload["width"]
+    n = len(config["ndepths"])
+    total = 0.0
+    for s, d in enumerate(config["ndepths"]):
+        scale = 2 ** (n - s - 1)
+        c = config["base_channels"] * 2 ** (n - 1 - s)
+        for planes in (d, 4):
+            shape = (b, v, planes, h // scale, w // scale, c)
+            costs = counts.adjoint_cost(*shape) if backward else [counts.pass_cost(*shape)]
+            total += sum(max(nb / peak_bytes, fl / peak_flops) for nb, fl in costs)
+    return total
+
+
+@pytest.mark.parametrize("cell", ["dtu_eval", "tank_eval", "dtu_train"])
+def test_least_seconds_from_the_recorded_passes_equal_the_formula(cell):
+    """At each cell's own shapes, on the meta device: the passes that the
+    count of a training step records give the formula's least seconds bit
+    for bit, forward and adjoint; an eval forward records the same forward
+    passes and no adjoint."""
+    workload, config = harness.cell_files(cell)
+    peak = harness.peaks_for("NVIDIA H100 80GB HBM3")
+    args = (peak["fp32_flops_per_s"], peak["bytes_per_s"])
+    meta = _inputs(workload, config, "meta", meta=True)
+    ref = harness.reference_module(config).build(config, "meta")
+    with torch.no_grad():
+        forward = counts.eval_counter(ref, meta["imgs"], meta["proj_matrices"],
+                                      meta["depth_values"]).passes
+    for p in ref.parameters():
+        p.requires_grad_(True)
+    step = counts.train_counter(
+        ref, meta, lambda o, bb: ref_loss.mvs_loss(o, bb["depth"], bb["mask"], config["dlossw"]))
+    assert len(forward) == len(step.passes) == 6
+    assert [p["shape"] for p in forward] == [p["shape"] for p in step.passes]
+    assert not any(p["adjoint"] for p in forward) and all(p["adjoint"] for p in step.passes)
+    for backward in (False, True):
+        want = _formula_least_seconds(config, workload, *args, backward=backward)
+        assert counts.warp_correlate_least_seconds(step.passes, *args, backward=backward) == want
+    assert counts.warp_correlate_least_seconds(forward, *args) == _formula_least_seconds(
+        config, workload, *args)
+    assert counts.warp_correlate_least_seconds(forward, *args, backward=True) == 0.0

@@ -80,6 +80,12 @@ def test_every_metric_is_reported_with_what_it_moves(cell):
         assert (BENCH / "metrics" / f"{m['name']}.py").is_file()
 
 
+def test_at_most_a_quarter_of_the_cells_take_four_chips():
+    """At most 25% of the cells, rounded down, ask for four chips, or one."""
+    four = [c["name"] for c in DOC["workloads"] if c["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4), four
+
+
 def test_per_layer_metrics_list_their_cells():
     for m in DOC["per_layer"]:
         assert set(m["workloads"]) <= set(CELLS), m

@@ -31,14 +31,18 @@ SHORT_GAP_US = 20.0
 
 
 @contextlib.contextmanager
-def profiled(path: str, cuda: bool):
+def profiled(path: str, cuda: bool, ready=None):
     """``torch.profiler`` over the block, inside the annotation ``WINDOW``;
-    the Chrome trace is written to ``path`` at exit."""
+    the Chrome trace is written to ``path`` at exit.  ``ready()``, where
+    given, is called once the profiler runs and before the window opens
+    (the ranks of a cell on several cards meet there)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
         torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        if ready:
+            ready()
         with torch.profiler.record_function(WINDOW):
             yield
             if cuda:
