@@ -261,7 +261,8 @@ class MVSNet(nn.Module):
                 if self.agg_mode == "adaptive":
                     with span(cost_span):
                         cost = warp_correlate.aggregate_cost_volume_adaptive(
-                            feats[key], proj2, dv, lambda sim: self._gate(weight_net, sim), impl)
+                            feats[key], proj2, dv,
+                            lambda sim: self._gate(f"{name}.{p}.gate", weight_net, sim), impl)
                 elif vp > 1 and (v - 1) % vp == 0:
                     cost = self._remat(cost_span, warp_correlate.aggregate_cost_volume_view_sharded,
                                        feats[key], proj2, dv, self.mesh, impl)
@@ -357,11 +358,13 @@ class MVSNet(nn.Module):
         with spatial.split_rows(split):
             return reg(x)
 
-    def _gate(self, weight_net: nn.Module, sim: torch.Tensor) -> torch.Tensor:
-        """The weight net's logits for one view's (B, D, H, W, 2) correlation,
-        fed in the compute dtype: (B, D, H, W, 1)."""
-        x = sim.to(self.compute_dtype).permute(0, 4, 1, 2, 3).contiguous()
-        return weight_net(x).permute(0, 2, 3, 4, 1)
+    def _gate(self, name: str, weight_net: nn.Module, sim: torch.Tensor) -> torch.Tensor:
+        """One view's (B, D, H, W, 2) fp32 correlation gated by the sigmoid
+        of its weight net (fed in the compute dtype), inside the span
+        ``name``."""
+        with span(name):
+            x = sim.to(self.compute_dtype).permute(0, 4, 1, 2, 3).contiguous()
+            return sim * torch.sigmoid(weight_net(x).permute(0, 2, 3, 4, 1).float())
 
 
 def _spanned(name: str, fn, *args):

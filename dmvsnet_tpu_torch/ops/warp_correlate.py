@@ -395,29 +395,29 @@ def pass_inputs(feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Te
 
 
 def aggregate_cost_volume_adaptive(
-    feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, weight_fn,
+    feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, gate_fn,
     impl: str = "cuda",
 ) -> torch.Tensor:
     """The adaptive cost pass (port of
     ``dmvsnet_tpu.ops.warp.aggregate_cost_volume_adaptive``): per source
     view v, kernel 1 on the (reference, source v) pair (a launch with V = 2;
     its backward the two adjoint kernels on that pair), gated by
-    ``sigmoid(weight_fn(corr))`` and summed in view order.  ``impl="torch"``,
-    or CPU tensors, take the plain version per pair.
+    ``gate_fn`` and summed in view order.  ``impl="torch"``, or CPU
+    tensors, take the plain version per pair.
 
-    Args: as ``aggregate_cost_volume``, plus ``weight_fn``: (B, D, H, W, 2)
-    fp32 -> (B, D, H, W, 1) logits.
+    Args: as ``aggregate_cost_volume``, plus ``gate_fn``: one pair's
+    (B, D, H, W, 2) fp32 correlation -> the gated (B, D, H, W, 2) fp32
+    correlation, ``corr * sigmoid(weight net(corr))`` in the model.
 
     Returns:
       (B, D, H, W, 2) fp32.  Differentiable w.r.t. ``feats`` and whatever
-      ``weight_fn`` holds.
+      ``gate_fn`` holds.
     """
     fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
     feats, rel, dv = pass_inputs(feats, proj2, depth_values)
     total = None
     for i in range(1, feats.shape[1]):
-        corr = counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), dv)
-        corr = corr * torch.sigmoid(weight_fn(corr).float())
+        corr = gate_fn(counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), dv))
         total = corr if total is None else total + corr
     return total
 

@@ -14,8 +14,12 @@ The spans (PERF.md §3 lists them with what reads each):
 * ``models/mvsnet.MVSNet.forward``: ``mvsnet.forward``; ``mvsnet.feature``;
   per stage k = 1..3 ``mvsnet.s{k}.sample`` and, per pass p = ``main`` /
   ``refine``, ``mvsnet.s{k}.{p}.cost``, ``mvsnet.s{k}.{p}.costreg`` and
-  ``mvsnet.s{k}.{p}.head``.  Under remat the recomputed feature net, cost
-  passes and cost U-Nets open their spans again inside the backward;
+  ``mvsnet.s{k}.{p}.head``.  Under ``agg_mode="adaptive"`` each source
+  view's gate (the weight net, the sigmoid and the product) is a span
+  ``mvsnet.s{k}.{p}.gate`` inside the pass's ``cost`` span, V - 1 of them
+  a pass (``models/mvsnet.MVSNet._gate``).  Under
+  remat the recomputed feature net, cost passes and cost U-Nets open their
+  spans again inside the backward;
 * ``engine/steps`` train step: ``train.step`` around ``train.forward``,
   ``train.loss``, ``train.backward``, ``train.metrics`` and
   ``train.optimizer``;

@@ -233,10 +233,15 @@ def test_adaptive_cost_pass_gradient_matches_jax(rng):
         jnp.asarray(feats), jnp.asarray(gate))
     for name in ("kernel wrapper", "plain"):
         f, g = torch.from_numpy(feats).requires_grad_(), torch.from_numpy(gate).requires_grad_()
-        args = (torch.from_numpy(proj2), torch.from_numpy(dv),
-                lambda sim: sim @ g[:2, None] + g[2])
-        got = (wc.aggregate_cost_volume_adaptive(f, *args) if name == "kernel wrapper"
-               else tw.aggregate_cost_volume_adaptive(list(f.unbind(1)), *args))
+        args = (torch.from_numpy(proj2), torch.from_numpy(dv))
+
+        def logits(sim):
+            return sim @ g[:2, None] + g[2]
+
+        got = (wc.aggregate_cost_volume_adaptive(
+                   f, *args, lambda sim: sim * torch.sigmoid(logits(sim)))
+               if name == "kernel wrapper"
+               else tw.aggregate_cost_volume_adaptive(list(f.unbind(1)), *args, logits))
         (got * torch.from_numpy(cot)).sum().backward()
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4, rtol=0,
                                    err_msg=name)

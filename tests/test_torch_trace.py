@@ -10,7 +10,9 @@ the size of tests/test_torch_remat.py (32x64, 3 views, batch 1, ndepths
   ``train.h2d`` before ``train.step`` and the step's five phases inside it,
   with the forward inside ``train.forward``; under remat the recomputed
   feature net, cost passes and cost U-Nets open their spans again inside
-  ``train.backward``; ``train.load`` marks every fetch of a loader;
+  ``train.backward``; ``train.load`` marks every fetch of a loader; an
+  adaptive forward adds V - 1 ``mvsnet.s{k}.{p}.gate`` spans inside each
+  pass's ``cost`` span, a variance forward none;
 * outputs, gradients and running statistics are equal bit for bit with the
   profiler on and off (under deterministic algorithms, as the remat test);
 * ``engine/profiler.breakdown`` reports every span of a forward and of a
@@ -178,6 +180,32 @@ def test_a_train_step_records_its_phases_and_the_forward(weights, host_batch, tm
         assert sorted(n for n, *_ in recomputed if n.startswith("mvsnet.")) == sorted(RECOMPUTED)
         for name in RECOMPUTED:
             assert _within(recomputed, name, "train.backward"), name
+
+
+def _adaptive_forward(host_batch) -> None:
+    model = _model(agg_mode="adaptive")
+    init_weights(model, torch.Generator().manual_seed(1))
+    batch = shard_batch(host_batch, make_mesh(1))
+    with torch.inference_mode():
+        model.eval()(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
+
+
+@pytest.mark.parametrize("agg_mode", ["adaptive", "variance"])
+def test_the_adaptive_gate_is_a_span_per_source_view(weights, host_batch, tmp_path, agg_mode):
+    """Each (stage, pass) of an adaptive forward opens V - 1 ``gate`` spans,
+    one per source view, inside its ``cost`` span; a variance forward opens
+    none."""
+    run = (lambda: _adaptive_forward(host_batch)) if agg_mode == "adaptive" else \
+        (lambda: _forward(weights, host_batch))
+    spans = _spans(run, tmp_path)
+    per_pass = V - 1 if agg_mode == "adaptive" else 0
+    passes = [f"mvsnet.s{k}.{p}" for k in (1, 2, 3) for p in ("main", "refine")]
+    assert sorted(n for n, *_ in spans if n.endswith(".gate")) == sorted(
+        f"{p}.gate" for p in passes for _ in range(per_pass))
+    assert sorted(n for n, *_ in spans if not n.endswith(".gate")) == sorted(
+        ["train.h2d", *FORWARD_SPANS])
+    for p in passes:
+        assert _within(spans, f"{p}.gate", f"{p}.cost"), p
 
 
 def test_every_fetch_of_a_loader_is_a_span(tmp_path):

@@ -330,7 +330,8 @@ def test_cuda_per_view_kernel_on_card(rng):
     net = net.to(dev).eval()
 
     def gate(sim):
-        return net(sim.permute(0, 4, 1, 2, 3).contiguous()).permute(0, 2, 3, 4, 1)
+        return sim * torch.sigmoid(
+            net(sim.permute(0, 4, 1, 2, 3).contiguous()).permute(0, 2, 3, 4, 1))
 
     for c in (8, 16, 32):
         feats = torch.from_numpy(rng.normal(size=(b, v, h, w, c)).astype(np.float32)).to(dev)
