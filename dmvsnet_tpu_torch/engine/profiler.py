@@ -20,9 +20,11 @@ forward or step by program span (``utils/trace``: ``mvsnet.*`` per stage
 and pass, ``train.*`` per phase; what each span launched, on any thread)
 and by hand-written kernel (``warp_correlate``, its two adjoints, and
 with ``--warp_impl epipolar`` ``resample`` and ``sweep1d``), the peak
-device memory of one more and ``conv_selections`` (the convolution
-problems cuDNN searched, all in the warm-up), then the session's table of
-ops by device time.
+device memory of one more, ``conv_selections`` (the convolution
+problems cuDNN searched, all in the warm-up) and ``fold_stats`` (the
+batch-normed blocks' folded and unfolded calls and fold refreshes over the
+warm-up, the session and that one more), then the session's table of ops
+by device time.
 
 ``--tf32`` measures only: the port itself pins fp32 (``pin_fp32``); the
 flag exists to measure what TF32 convolutions would change.
@@ -344,6 +346,7 @@ def main_train(args, device) -> None:
     batch = _batch(cfg, cfg.batch_size, cfg.nviews, *cfg.img_size, device)
     step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
     blocks.reset_conv_selections()
+    blocks.reset_fold_stats()
     times, table = breakdown(lambda: step(model, optimizer, scheduler, batch))
     torch.cuda.reset_peak_memory_stats()
     step(model, optimizer, scheduler, batch)
@@ -352,7 +355,8 @@ def main_train(args, device) -> None:
     print("train_breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
-        conv_selections=blocks.conv_selections(), peak_mem_gb=peak / 1e9, ms=times)),
+        conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
+        peak_mem_gb=peak / 1e9, ms=times)),
         flush=True)
     print(table, flush=True)
 
@@ -388,6 +392,7 @@ def main(argv=None) -> None:
         infer(model, *inputs)
 
     blocks.reset_conv_selections()
+    blocks.reset_fold_stats()
     times, table = breakdown(forward)
     torch.cuda.reset_peak_memory_stats()
     forward()
@@ -395,8 +400,9 @@ def main(argv=None) -> None:
     print("breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
-        conv_selections=blocks.conv_selections(), peak_mem_gb=peak / 1e9,
-        ms_per_map=times["mvsnet.forward"] / args.batch, ms=times)), flush=True)
+        conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
+        peak_mem_gb=peak / 1e9, ms_per_map=times["mvsnet.forward"] / args.batch,
+        ms=times)), flush=True)
     print(table, flush=True)
 
 

@@ -19,11 +19,25 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
   dtype; train-mode batch norm takes fp32 statistics, computes in fp32 and
   returns fp32; eval-mode batch norm computes in fp32 on the running
   statistics (flax 0.12's ``_normalize`` subtracts the fp32 mean from the
-  input first) and returns the block dtype.  This is the ``blocks.py`` form
-  of the JAX package, not the fold-then-apply form of its
-  ``models/folded.py`` (scale and shift folded in fp32, applied in the
-  input dtype); ReLU and the skip sums keep the dtype their operands give,
-  as the jnp ops do (bf16 + fp32 is fp32 in both);
+  input first) and returns the block dtype.  Under a bf16 policy this is
+  the ``blocks.py`` form of the JAX package, not the fold-then-apply form
+  of its ``models/folded.py`` (scale and shift folded in fp32, applied in
+  the input dtype); ReLU and the skip sums keep the dtype their operands
+  give, as the jnp ops do (bf16 + fp32 is fp32 in both);
+* an fp32 block whose norm runs on its running statistics, with autograd
+  off and no cost count running (``ops.warp_correlate.COUNTER``), folds
+  the norm into its convolution: one convolution with the weight scaled
+  per output channel by ``s = gamma / sqrt(running_var + eps)``
+  (``eval_affine``) and the bias ``beta - running_mean * s``, then the ReLU
+  (on the card in the epilogue of cuDNN's convolution where the conv is
+  not transposed, else in place); the same arithmetic in fp32, rounded in
+  another order.  The folded weight and bias are cached on the block,
+  keyed on the identity, ``data_ptr`` and ``_version`` of the conv weight
+  and the norm's four tensors, so ``load_state_dict``, a train step or
+  ``.to()`` refreshes them.  ``fold_stats`` counts the folded and the
+  unfolded calls of batch-normed blocks and the refreshes.  Training, eval
+  with autograd on and the bf16 policies run the conv, the norm and the
+  ReLU as above;
 * on the spatial mesh axis (``spatial_split``) a 3x3 convolution inside
   ``parallel.spatial.split_rows()`` takes its input as this rank's band of
   rows: it pads the band with the halo rows of its neighbours
@@ -36,7 +50,8 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
   a step updates them once, as the step without remat does.
 * ``conv_selections`` counts the convolution problems the port's
   convolutions met while cuDNN chose algorithms by measurement
-  (``dmvsnet_tpu_torch.measured_conv_algorithms``).
+  (``dmvsnet_tpu_torch.measured_conv_algorithms``); the folded
+  convolution is the same problem as the unfolded one.
 
 Attribute names follow the reference layout (``.conv`` and ``.bn``), so a
 reference-named state dict loads as is.
@@ -54,6 +69,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
+from dmvsnet_tpu_torch.ops import warp_correlate
 from dmvsnet_tpu_torch.parallel import spatial
 from dmvsnet_tpu_torch.parallel.mesh import AXIS_DATA_SPATIAL, psum
 
@@ -113,6 +129,40 @@ def note_conv(kind: str, x: torch.Tensor, w: torch.Tensor, stride, padding) -> N
     if torch.backends.cudnn.benchmark:
         _SELECTIONS.add((kind, tuple(x.shape), tuple(w.shape), tuple(stride), padding,
                          x.dtype, torch.is_grad_enabled()))
+
+
+# calls of batch-normed blocks, folded and unfolded, and refreshes of a
+# block's folded weight and bias
+_FOLD_STATS = {"folded": 0, "unfolded": 0, "refreshes": 0}
+_FOLD_STATS_LOCK = threading.Lock()
+
+
+def fold_stats() -> dict[str, int]:
+    """Since the last reset: ``folded``, the calls of batch-normed blocks
+    that ran their norm folded into the convolution; ``unfolded``, those
+    that ran the convolution, the norm and the ReLU; ``refreshes``, how
+    often a block formed its folded weight and bias anew (once per block
+    until its weights or statistics change)."""
+    with _FOLD_STATS_LOCK:
+        return dict(_FOLD_STATS)
+
+
+def reset_fold_stats() -> None:
+    with _FOLD_STATS_LOCK:
+        for k in _FOLD_STATS:
+            _FOLD_STATS[k] = 0
+
+
+def _count_fold(key: str) -> None:
+    with _FOLD_STATS_LOCK:
+        _FOLD_STATS[key] += 1
+
+
+def eval_affine(bn) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eval batch norm as a per-channel affine map of its running
+    statistics: ``(scale, shift)`` with ``bn(x) = x * scale + shift``."""
+    scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return scale, bn.bias - bn.running_mean * scale
 
 
 class _BiasedRunningVar:
@@ -246,9 +296,13 @@ class _Cast:
     compute_dtype = torch.float32
     spatial = None
 
-    def _cast(self, x):
+    def _cast(self, x, params=None):
+        """``x`` and the weight and bias in the compute dtype; ``params``, a
+        (weight, bias) pair, stands in for the module's own (a block's norm
+        folded into them)."""
         dt = self.compute_dtype
-        return x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+        w, b = (self.weight, self.bias) if params is None else params
+        return x.to(dt), w.to(dt), None if b is None else b.to(dt)
 
     def _banded(self) -> bool:
         return self.spatial is not None and spatial.rows_split()
@@ -264,23 +318,31 @@ class _Cast:
         return spatial.halo_exchange(x, self.spatial, x.dim() - 2), tuple(padding)
 
 
-    def _convolve(self, fn, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = self._cast(x)
+    def _convolve(self, fn, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        """``fn`` (``F.conv{2,3}d``) on ``x``; with ``relu``, ReLU'd: on the
+        card one cuDNN convolution with the bias and the ReLU in its
+        epilogue (``torch.cudnn_convolution_relu``, its algorithms chosen
+        under the same flags), elsewhere the ReLU in place."""
+        x, w, b = self._cast(x, params)
         padding = self.padding
         if self._banded():
             x, padding = self._halo(x)
         note_conv(type(self).__name__, x, w, self.stride, padding)
-        return fn(x, w, b, self.stride, padding, self.dilation, self.groups)
+        if relu and x.is_cuda and torch.backends.cudnn.enabled:
+            return torch.cudnn_convolution_relu(x, w, b, self.stride, padding, self.dilation,
+                                                self.groups)
+        y = fn(x, w, b, self.stride, padding, self.dilation, self.groups)
+        return torch.relu_(y) if relu else y
 
 
 class Conv2d(_Cast, nn.Conv2d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._convolve(F.conv2d, x)
+    def forward(self, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        return self._convolve(F.conv2d, x, params, relu)
 
 
 class Conv3d(_Cast, nn.Conv3d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._convolve(F.conv3d, x)
+    def forward(self, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        return self._convolve(F.conv3d, x, params, relu)
 
 
 class _Transpose(_Cast):
@@ -290,30 +352,33 @@ class _Transpose(_Cast):
     Run on the band with both halo rows and no padding on H, output row o'
     is global row o = o' + s*(a-1) - p, so the band's rows start at o' = s + p."""
 
-    def _transpose(self, fn, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = self._cast(x)
+    def _transpose(self, fn, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        x, w, b = self._cast(x, params)
         if not self._banded():
             note_conv(type(self).__name__, x, w, self.stride, self.padding)
-            return fn(x, w, b, self.stride, self.padding, self.output_padding, self.groups,
-                      self.dilation)
-        n = x.shape[-2]
-        x, padding = self._halo(x)
-        output_padding = list(self.output_padding)
-        output_padding[-2] = 0
-        note_conv(type(self).__name__, x, w, self.stride, padding)
-        y = fn(x, w, b, self.stride, padding, tuple(output_padding), self.groups, self.dilation)
-        s = self.stride[-2]
-        return y.narrow(-2, s + self.padding[-2], s * n)
+            y = fn(x, w, b, self.stride, self.padding, self.output_padding, self.groups,
+                   self.dilation)
+        else:
+            n = x.shape[-2]
+            x, padding = self._halo(x)
+            output_padding = list(self.output_padding)
+            output_padding[-2] = 0
+            note_conv(type(self).__name__, x, w, self.stride, padding)
+            y = fn(x, w, b, self.stride, padding, tuple(output_padding), self.groups,
+                   self.dilation)
+            s = self.stride[-2]
+            y = y.narrow(-2, s + self.padding[-2], s * n)
+        return torch.relu_(y) if relu else y
 
 
 class ConvTranspose2d(_Transpose, nn.ConvTranspose2d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._transpose(F.conv_transpose2d, x)
+    def forward(self, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        return self._transpose(F.conv_transpose2d, x, params, relu)
 
 
 class ConvTranspose3d(_Transpose, nn.ConvTranspose3d):
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._transpose(F.conv_transpose3d, x)
+    def forward(self, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        return self._transpose(F.conv_transpose3d, x, params, relu)
 
 
 _CONV = {2: Conv2d, 3: Conv3d}
@@ -325,11 +390,61 @@ def _with_dtype(conv: nn.Module, dtype: torch.dtype) -> nn.Module:
     return conv
 
 
+def _version(t: torch.Tensor):
+    """``t``'s version counter; None for an inference tensor, which has none
+    (a fold over one is formed anew on every call)."""
+    return None if t.is_inference() else t._version
+
+
+def _source(t: torch.Tensor) -> tuple:
+    """What ``_unchanged`` compares: ``t``, its storage (held, so that its
+    address is not reused while the fold is cached), ``data_ptr`` and
+    version."""
+    return t, t.untyped_storage(), t.data_ptr(), _version(t)
+
+
+def _unchanged(source: tuple, t: torch.Tensor) -> bool:
+    was, _, ptr, version = source
+    return was is t and ptr == t.data_ptr() and version is not None and version == _version(t)
+
+
 class _Block(nn.Module):
     """conv, then batch norm (fp32 in train; fp32 arithmetic returning the
-    block dtype in eval), then ReLU."""
+    block dtype in eval), then ReLU; an fp32 block with autograd off folds
+    its eval norm into the conv (``_folds``)."""
+
+    _fold = None  # (sources, folded weight, folded bias), set by _folded
+
+    def _folds(self) -> bool:
+        """Whether this call folds the norm: the norm runs on its running
+        statistics, the block computes in fp32, autograd is off and no cost
+        count runs (the count is of the unfolded program)."""
+        bn = self.bn
+        return (not self.training and not bn.training and bn.running_mean is not None
+                and self.dtype == torch.float32 and not torch.is_grad_enabled()
+                and warp_correlate.COUNTER is None)
+
+    def _folded(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The conv weight scaled per output channel (dim 1 of a transposed
+        conv's weight) and the bias of the norm's affine map (fp32), formed
+        anew when the conv weight or a tensor of the norm is another tensor,
+        has other storage or was written in place since the last call."""
+        conv, bn = self.conv, self.bn
+        tensors = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        if self._fold is None or not all(map(_unchanged, self._fold[0], tensors)):
+            scale, shift = eval_affine(bn)
+            shape = [1] * conv.weight.dim()
+            shape[1 if isinstance(conv, _Transpose) else 0] = -1
+            self._fold = (tuple(map(_source, tensors)), conv.weight * scale.view(shape), shift)
+            _count_fold("refreshes")
+        return self._fold[1:]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bn is not None:
+            if self._folds():
+                _count_fold("folded")
+                return self.conv(x, self._folded(), relu=self.relu)
+            _count_fold("unfolded")
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x.float())

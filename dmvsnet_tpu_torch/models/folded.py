@@ -269,8 +269,7 @@ def batch_norm(bn, x: torch.Tensor, g: int) -> torch.Tensor:
     c = bn.num_features
     shape = (1, g * c, 1, 1)
     if not (bn.training and bn.track_running_stats):
-        inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-        shift = bn.bias - bn.running_mean * inv
+        inv, shift = blocks.eval_affine(bn)
         return (x * inv.repeat(g).to(x.dtype).view(shape)
                 + shift.repeat(g).to(x.dtype).view(shape))
     n, _, h, w = x.shape
