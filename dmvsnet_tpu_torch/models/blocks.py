@@ -24,17 +24,30 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
   of its ``models/folded.py`` (scale and shift folded in fp32, applied in
   the input dtype); ReLU and the skip sums keep the dtype their operands
   give, as the jnp ops do (bf16 + fp32 is fp32 in both);
+* every batch norm's arithmetic is ``_BiasedRunningVar``'s: the plain
+  layout's, and that of the folded level-0 plan (``models/folded.py``),
+  whose tensors hold a norm's channels in g fold groups (train: per-channel
+  statistics over the groups too; eval without the fold below: the JAX
+  package's folded form, scale and shift in fp32 applied in the input
+  dtype); one helper (``_track``) moves the running statistics;
+* ``_Block.forward`` runs the blocks of both plans: the folded plan hands
+  it its folded convolution and the number of fold groups;
+* ``takes_fold`` is where the cost count's rule is decided, the one place
+  ``models/`` reads ``ops.warp_correlate.COUNTER``: under a count every
+  call runs the unfolded program (no norm folded, no level folded), so
+  the count is the same under every plan;
 * an fp32 block whose norm runs on its running statistics, with autograd
-  off and no cost count running (``ops.warp_correlate.COUNTER``), folds
-  the norm into its convolution: one convolution with the weight scaled
+  off and no cost count running (``takes_fold``), folds the norm into its
+  convolution, in either plan: one convolution with the weight scaled
   per output channel by ``s = gamma / sqrt(running_var + eps)``
   (``eval_affine``) and the bias ``beta - running_mean * s``, then the ReLU
   (on the card in the epilogue of cuDNN's convolution where the conv is
   not transposed, else in place); the same arithmetic in fp32, rounded in
-  another order.  The folded weight and bias are cached on the block,
-  keyed on the identity, ``data_ptr`` and ``_version`` of the conv weight
-  and the norm's four tensors, so ``load_state_dict``, a train step or
-  ``.to()`` refreshes them.  ``fold_stats`` counts the folded and the
+  another order (the folded plan gathers its kernel from the same scaled
+  weight and tiles the bias).  The folded weight and bias are cached on
+  the block, keyed on the identity, ``data_ptr`` and ``_version`` of the
+  conv weight and the norm's four tensors, so ``load_state_dict``, a train
+  step or ``.to()`` refreshes them.  ``fold_stats`` counts the folded and the
   unfolded calls of batch-normed blocks and the refreshes.  Training, eval
   with autograd on and the bf16 policies run the conv, the norm and the
   ReLU as above;
@@ -50,8 +63,8 @@ dmvsnet_tpu.models.blocks), channels-first as PyTorch convolutions want.
   a step updates them once, as the step without remat does.
 * ``conv_selections`` counts the convolution problems the port's
   convolutions met while cuDNN chose algorithms by measurement
-  (``dmvsnet_tpu_torch.measured_conv_algorithms``); the folded
-  convolution is the same problem as the unfolded one.
+  (``dmvsnet_tpu_torch.measured_conv_algorithms``); a block's convolution
+  with its norm folded in is the same problem as without.
 
 Attribute names follow the reference layout (``.conv`` and ``.bn``), so a
 reference-named state dict loads as is.
@@ -166,8 +179,9 @@ def eval_affine(bn) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class _BiasedRunningVar:
-    """Train-mode batch norm whose running variance follows the JAX
-    package: ``var <- (1 - m) var + m * biased batch variance``.
+    """Batch norm, all of its arithmetic: train mode follows the JAX
+    package's running variance, ``var <- (1 - m) var + m * biased batch
+    variance``.
 
     ``torch.nn.BatchNorm*`` normalises with the biased variance but updates
     the running variance with the unbiased one, n/(n-1) times larger (n =
@@ -179,16 +193,40 @@ class _BiasedRunningVar:
 
     With a ``process_group`` (set by ``sync_batch_norm``) the train-mode
     statistics are those of the batches of every rank in the group.
+
+    ``g`` > 1 is a folded tensor (``models/folded.py``): (N, g*C, h, w),
+    the norm's C channels in g groups, with per-C statistics over the
+    groups too (train: the fp32 E[x^2] - E[x]^2, or ``group_moments`` under
+    a group); its eval form is the JAX package's folded one, scale and
+    shift in fp32 applied in the input's dtype.
     """
 
     process_group = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, g: int = 1) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
-            return super().forward(x)
-        self._check_input_dim(x)
-        if self.process_group is not None:
-            return self._synced_forward(x)
+            if g == 1:
+                return super().forward(x.float())
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            scale, shift = (t.repeat(g).to(x.dtype).view(shape) for t in eval_affine(self))
+            return x * scale + shift
+        x = x.float()
+        if g == 1:
+            self._check_input_dim(x)
+            if self.process_group is None:
+                return self._fused(x)
+        mean, var = self._moments(x, g)
+        self._track(mean, var)
+
+        def tiled(t):
+            return (t if g == 1 else t.repeat(g)).view((1, -1) + (1,) * (x.dim() - 2))
+
+        inv = self.weight * torch.rsqrt(var + self.eps)
+        return (x - tiled(mean)) * tiled(inv) + tiled(self.bias)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode without a group: torch's fused batch norm, then the
+        running variance's correction to the biased update."""
         m = self.momentum
         var = self.running_var.clone()
         # a recompute updates copies: the same call, no buffer moves
@@ -205,23 +243,32 @@ class _BiasedRunningVar:
             self.num_batches_tracked += 1
         return y
 
-    def _synced_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Train-mode batch norm over the group's joined batch
-        (``group_moments``)."""
-        c = x.shape[1]
-        dims = [0, *range(2, x.dim())]
-        shape = (1, c) + (1,) * (x.dim() - 2)
-        mean, var = group_moments(x, dims, shape, self.process_group)
-        y = (x - mean.view(shape)) * (torch.rsqrt(var + self.eps) * self.weight).view(shape)
-        y = y + self.bias.view(shape)
+    def _moments(self, x: torch.Tensor, g: int):
+        """Per-channel mean and biased variance of ``x`` (N, g*C, ...):
+        over the joined batch of the ``process_group`` (``group_moments``),
+        else E[x^2] - E[x]^2 as the JAX package's folded plan takes them."""
+        c = 1 if g == 1 else 2  # the channel axis
+        if g > 1:
+            x = x.view(x.shape[0], g, self.num_features, *x.shape[2:])
+        dims = [i for i in range(x.dim()) if i != c]
+        if self.process_group is not None:
+            shape = [1] * x.dim()
+            shape[c] = -1
+            return group_moments(x, dims, shape, self.process_group)
+        mean = x.mean(dims)
+        return mean, x.square().mean(dims) - mean.square()
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The batch's mean and biased variance into the running statistics
+        with the momentum; a recompute under ``checkpoint`` updates
+        nothing."""
         if recomputing():
-            return y
+            return
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked += 1
-        return y
 
 
 def group_moments(x: torch.Tensor, dims, shape, process_group):
@@ -319,20 +366,23 @@ class _Cast:
 
 
     def _convolve(self, fn, x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
-        """``fn`` (``F.conv{2,3}d``) on ``x``; with ``relu``, ReLU'd: on the
-        card one cuDNN convolution with the bias and the ReLU in its
-        epilogue (``torch.cudnn_convolution_relu``, its algorithms chosen
-        under the same flags), elsewhere the ReLU in place."""
         x, w, b = self._cast(x, params)
         padding = self.padding
         if self._banded():
             x, padding = self._halo(x)
         note_conv(type(self).__name__, x, w, self.stride, padding)
-        if relu and x.is_cuda and torch.backends.cudnn.enabled:
-            return torch.cudnn_convolution_relu(x, w, b, self.stride, padding, self.dilation,
-                                                self.groups)
-        y = fn(x, w, b, self.stride, padding, self.dilation, self.groups)
-        return torch.relu_(y) if relu else y
+        return convolve(fn, x, w, b, self.stride, padding, self.dilation, self.groups, relu)
+
+
+def convolve(fn, x, w, b, stride, padding, dilation, groups, relu: bool = False) -> torch.Tensor:
+    """``fn`` (``F.conv{2,3}d``) of ``x`` by ``w`` and ``b``; with ``relu``,
+    ReLU'd: on the card one cuDNN convolution with the bias and the ReLU in
+    its epilogue (``torch.cudnn_convolution_relu``, its algorithms chosen
+    under the same flags), elsewhere the ReLU in place."""
+    if relu and x.is_cuda and torch.backends.cudnn.enabled:
+        return torch.cudnn_convolution_relu(x, w, b, stride, padding, dilation, groups)
+    y = fn(x, w, b, stride, padding, dilation, groups)
+    return torch.relu_(y) if relu else y
 
 
 class Conv2d(_Cast, nn.Conv2d):
@@ -408,21 +458,29 @@ def _unchanged(source: tuple, t: torch.Tensor) -> bool:
     return was is t and ptr == t.data_ptr() and version is not None and version == _version(t)
 
 
+def takes_fold(wanted: bool) -> bool:
+    """Whether a call that may take a folded form (``wanted``: a block's
+    eval norm folded into its convolution, a level-0 plan's folded
+    execution) takes it: not while a cost count runs
+    (``ops.warp_correlate.COUNTER``), which counts the unfolded program."""
+    return wanted and warp_correlate.COUNTER is None
+
+
 class _Block(nn.Module):
-    """conv, then batch norm (fp32 in train; fp32 arithmetic returning the
-    block dtype in eval), then ReLU; an fp32 block with autograd off folds
-    its eval norm into the conv (``_folds``)."""
+    """conv, then batch norm (``_BiasedRunningVar``), then ReLU; an fp32
+    block with autograd off folds its eval norm into the conv (``_folds``).
+    Every plan runs its blocks here: ``models/folded.py`` hands ``forward``
+    its folded convolution."""
 
     _fold = None  # (sources, folded weight, folded bias), set by _folded
 
     def _folds(self) -> bool:
         """Whether this call folds the norm: the norm runs on its running
         statistics, the block computes in fp32, autograd is off and no cost
-        count runs (the count is of the unfolded program)."""
+        count runs (``takes_fold``)."""
         bn = self.bn
-        return (not self.training and not bn.training and bn.running_mean is not None
-                and self.dtype == torch.float32 and not torch.is_grad_enabled()
-                and warp_correlate.COUNTER is None)
+        return takes_fold(not self.training and not bn.training and bn.running_mean is not None
+                          and self.dtype == torch.float32 and not torch.is_grad_enabled())
 
     def _folded(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The conv weight scaled per output channel (dim 1 of a transposed
@@ -439,15 +497,20 @@ class _Block(nn.Module):
             _count_fold("refreshes")
         return self._fold[1:]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, conv=None, g: int = 1) -> torch.Tensor:
+        """``conv(x, params=None, relu=False)`` is the convolution (the
+        block's own ``self.conv`` by default; ``params``, a (weight, bias)
+        pair in ``self.conv``'s layout, stands in for its parameters); its
+        output holds the norm's channels in ``g`` groups."""
+        conv = self.conv if conv is None else conv
         if self.bn is not None:
             if self._folds():
                 _count_fold("folded")
-                return self.conv(x, self._folded(), relu=self.relu)
+                return conv(x, self._folded(), relu=self.relu)
             _count_fold("unfolded")
-        x = self.conv(x)
+        x = conv(x)
         if self.bn is not None:
-            x = self.bn(x.float())
+            x = self.bn(x, g)
             if not self.training:
                 x = x.to(self.dtype)
         return torch.relu(x) if self.relu else x

@@ -8,13 +8,16 @@ axis at the bottleneck and runs 2D convs there.  Cost volumes are
 [small0, small1, huge0, huge1].  ``dtype`` is every block's compute dtype
 (``models/blocks.py``).
 
-``fold_level0`` (an attribute, so one model switches plans): where it is set
-and ``models/folded.use_folded_level0`` holds for the input, a branch runs
+``fold_level0`` (an attribute, so one model switches plans): a branch runs
 its full-resolution level (``conv0``, ``conv1``, ``conv11``, ``prob``) in
-folded form (``models/folded.py``) over the same parameters; the levels
-below run as they are.  The port's default is False: the JAX package's
-default, True, was chosen on a TPU, and routing on the card comes from
-measurements on the card.
+folded form (``models/folded.py``) over the same parameters where
+``folded.level0`` says so: ``fold_level0`` is set,
+``folded.use_folded_level0`` holds for the input and no cost count runs
+(``blocks.takes_fold``); the levels below run as they are.  Every block of
+either plan runs through ``blocks._Block``, which owns the norm
+(``blocks._BiasedRunningVar``) and its fold into the convolution.  The
+port's default is False: the JAX package's default, True, was chosen on a
+TPU, and routing on the card comes from measurements on the card.
 
 ``AggWeightNetVolume`` is the per-voxel view-weight net of
 ``agg_mode="adaptive"``: two 1x1x1 ConvBlocks (batch norm, ReLU), 2 -> 1 -> 1.
@@ -34,10 +37,8 @@ class _Branch(nn.Module):
     ``conv11``, ``prob``) around the levels below (``_middle``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fold_level0:
-            if folded.use_folded_level0(x):
-                return folded.run(self, self._folded, self._unfolded, x)
-            folded.decline(type(self).__name__, x.shape)
+        if folded.level0(self, x.shape, folded.use_folded_level0(x)):
+            return self._folded(x)
         return self._unfolded(x)
 
     def _unfolded(self, x: torch.Tensor) -> torch.Tensor:

@@ -8,11 +8,13 @@ layout (``conv0.0`` ... ``conv2.2``, ``out1..3``, ``inner1..2``).
 ``dtype`` is every block's compute dtype (``models/blocks.py``).
 
 ``fold_level0`` (an attribute, default False as in the JAX package): with
-even H and W the full-resolution level runs in 2x2 folded form
+even H and W, and no cost count running (``folded.level0``, which asks
+``blocks.takes_fold``), the full-resolution level runs in 2x2 folded form
 (``models/folded.py``) over the same parameters: ``conv0.0``, ``conv0.1``,
 ``conv1.0`` (k5, stride 2: plain out), and ``inner2`` / ``out3``, where the
 nearest 2x upsample of the half-resolution map is its tiling over the four
-fold phases.
+fold phases.  The blocks run through ``blocks._Block`` in either plan,
+which owns the norm and its fold into the convolution.
 """
 
 from __future__ import annotations
@@ -47,13 +49,8 @@ class FeatureNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
         """x: (N, 3, H, W) -> {stage1..3, stage1_c..3_c}, each (N, C, h, w)."""
-        if not self.fold_level0:
-            heads = self._unfolded(x)
-        elif x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
-            heads = folded.run(self, self._folded, self._unfolded, x)
-        else:
-            folded.decline("FeatureNet", x.shape)
-            heads = self._unfolded(x)
+        even = x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0
+        heads = (self._folded if folded.level0(self, x.shape, even) else self._unfolded)(x)
         outputs = {}
         for s, out in enumerate(heads):
             outputs[f"stage{s + 1}"], outputs[f"stage{s + 1}_c"] = out.chunk(2, dim=1)

@@ -7,9 +7,12 @@ into channels, and each 3x3(x3) convolution of that level runs as ONE
 The arithmetic is the same sums in another order: parameters keep their
 canonical shapes and names, so one state dict serves both plans and one
 model switches between them (``fold_level0`` of ``FeatureNet``, of the
-cost U-Nets and of ``MVSNet``).  There are no folded modules: the
-functions below run the existing ``blocks.ConvBlock`` / ``DeconvBlock`` /
-``PlainConv`` modules, with their parameters, in folded form.
+cost U-Nets and of ``MVSNet``).  There are no folded modules and no
+folded block executor: ``conv_block`` / ``deconv_block`` build the folded
+convolution of an existing ``blocks.ConvBlock`` / ``DeconvBlock`` and
+hand it to the block's own ``forward`` (``blocks._Block``), which runs
+the norm and the ReLU, and folds an fp32 eval norm into the convolution
+as in the unfolded plan; ``plain_conv`` runs a ``PlainConv`` folded.
 
 Layouts (channels first; the channel order is the JAX package's, so a
 folded tensor is the JAX one transposed from NHWC to NCHW):
@@ -36,16 +39,13 @@ shape, planes, dims) and kept per device; the only per-call work on the
 parameter is one gather and one mask, through which the weight gradient
 flows back into the canonical parameter.
 
-Batch norm over a folded tensor has canonical per-channel statistics (over
-batch, space and the G fold groups), under the module's own parameters and
-buffers: train mode takes the fp32 mean and E[x^2] - E[x]^2 (with a
-``process_group``, the synced statistics of ``blocks.group_moments`` over
-the same group as the unfolded block), puts the biased variance into the
-running statistics with the port's momentum, and returns fp32; a recompute
-under remat updates nothing.  Eval mode is the JAX package's folded form:
-scale and shift folded in fp32 and applied in the input's dtype (not the
-``blocks.py`` form of the unfolded plan, which computes in fp32; the
-difference is the JAX package's own).
+Batch norm over a folded tensor is the block's own norm
+(``blocks._BiasedRunningVar`` with g fold groups): canonical per-channel
+statistics over batch, space and the groups.  Where it does not fold
+into the convolution (bf16, or autograd on), eval mode is the JAX
+package's folded form, scale and shift in fp32 applied in the input's
+dtype (not the ``blocks.py`` form of the unfolded plan; the difference is
+the JAX package's own).
 
 On the spatial mesh axis (``blocks.spatial_split``, inside
 ``parallel.spatial.split_rows()``) a folded convolution exchanges one halo
@@ -54,22 +54,18 @@ rows.  The stride-1 3x3 (row padding (1, 1)) uses both, the stride-2 2x2
 (padding (1, 0)) the row above, the transposed 2x2 (padding (0, 1)) the row
 below.  Bands lie on multiples of 8 rows, so folded bands stay whole.
 
-``stats`` counts the folded convolutions run (``"convolutions"``) and the
-calls with ``fold_level0`` set that the shape rule sent to the unfolded
-plan (``"declined"``; each one also logged at debug level).
-
-The cost model (``engine/profiler.cost_analysis``) counts the canonical,
-unfolded program whatever plan runs: under its counter, ``run`` executes
-the folded call with the aten count suspended and the same module's
-unfolded execution counted in its place (forward, and in an
-``autograd.Function`` the backward too) on copies of the module's buffers,
-so the running statistics are the folded call's.  So FLOPs and bytes are equal for both
-plans.
+``level0`` decides the plan of a call: ``fold_level0`` is set, the shape
+rule holds and no cost count runs (``blocks.takes_fold``).  The cost model
+(``engine/profiler.cost_analysis``) counts the canonical, unfolded
+program: under its counter every call runs the unfolded plan, so FLOPs
+and bytes are equal for both plans.  ``stats`` counts the folded
+convolutions run (``"convolutions"``) and the calls with ``fold_level0``
+set that the shape rule sent to the unfolded plan (``"declined"``; each
+one also logged at debug level).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import logging
 
@@ -78,7 +74,6 @@ import torch
 import torch.nn.functional as F
 
 from dmvsnet_tpu_torch.models import blocks
-from dmvsnet_tpu_torch.ops import warp_correlate
 from dmvsnet_tpu_torch.parallel import spatial
 
 stats = {"convolutions": 0, "declined": 0}
@@ -127,10 +122,17 @@ def use_folded_level0(x: torch.Tensor) -> bool:
     return d * 4 * c <= 128 and d % 2 == 0 and h % 2 == 0 and w % 2 == 0
 
 
-def decline(what: str, shape) -> None:
-    stats["declined"] += 1
-    logging.debug("fold_level0: %s of shape %s runs unfolded (the shape rule declines it)",
-                  what, tuple(shape))
+def level0(module, shape, fits: bool) -> bool:
+    """Whether ``module`` (a feature net or a cost U-Net branch) runs its
+    full-resolution level folded on an input of ``shape``: its
+    ``fold_level0`` is set, the shape rule holds (``fits``; a call the rule
+    declines is counted and logged at debug level) and no cost count runs
+    (``blocks.takes_fold``)."""
+    if module.fold_level0 and not fits:
+        stats["declined"] += 1
+        logging.debug("fold_level0: %s of shape %s runs unfolded (the shape rule declines it)",
+                      type(module).__name__, tuple(shape))
+    return blocks.takes_fold(module.fold_level0 and fits)
 
 
 # ---------------------------------------------------------- folded kernels
@@ -239,10 +241,10 @@ def folded_kernel_deconv(weight: torch.Tensor, d_in: int, dims: int):
 
 # ------------------------------------------------------ folded execution
 
-def _conv2d(conv, x: torch.Tensor, kern: torch.Tensor, bias, pad) -> torch.Tensor:
+def _conv2d(conv, x: torch.Tensor, kern: torch.Tensor, bias, pad, relu: bool) -> torch.Tensor:
     """The folded convolution of ``conv`` (a ``blocks`` conv: its ``spatial``
     mesh): padding (lo, hi) on rows and columns, or on a band of rows the
-    halo rows of its neighbours."""
+    halo rows of its neighbours; with ``relu``, ReLU'd (``blocks.convolve``)."""
     stats["convolutions"] += 1
     lo, hi = pad
     if conv.spatial is not None and spatial.rows_split():
@@ -256,167 +258,52 @@ def _conv2d(conv, x: torch.Tensor, kern: torch.Tensor, bias, pad) -> torch.Tenso
     else:
         x, padding = F.pad(x, (lo, hi, lo, hi)), (0, 0)
     blocks.note_conv("folded", x, kern, (1, 1), padding)
-    return F.conv2d(x, kern, bias, padding=padding)
+    return blocks.convolve(F.conv2d, x, kern, bias, (1, 1), padding, (1, 1), 1, relu)
 
 
-def _tiled_bias(conv, g: int):
-    return None if conv.bias is None else conv.bias.to(conv.compute_dtype).repeat(g)
+def _folded_conv(conv, kind: str, d: int):
+    """``conv`` (a ``blocks`` conv) in folded form with ``d`` planes folded
+    into its input (1 for 2-D), ``kind`` "s1", "s2" or "deconv": (``fn``,
+    g).  ``fn(x, params=None, relu=False)`` is a convolution as
+    ``blocks._Block.forward`` takes it: the kernel gathered from the
+    (weight, bias) pair (the module's own, or ``params`` in its layout),
+    the bias tiled over the output's planes and fold phases, and a 3-D
+    stride-2 output reshaped back to the plain layout.  g is the number of
+    groups the output's channels fold (1: plain)."""
+    dims = conv.weight.dim() - 2
+    d_out = _plan(kind, tuple(conv.weight.shape), d, dims)[3]
+    tiles = d_out if kind == "s2" else 4 * d_out
 
+    def fn(x: torch.Tensor, params=None, relu: bool = False) -> torch.Tensor:
+        if kind == "deconv" and dims == 3:
+            x = fold_depth(x)
+        x, w, b = conv._cast(x, params)
+        kern, pad, _ = _folded_kernel(kind, w, d, dims)
+        y = _conv2d(conv, x, kern, None if b is None else b.repeat(tiles), pad, relu)
+        if kind == "s2" and dims == 3:
+            n, _, h2, w2 = y.shape
+            y = y.view(n, d_out, w.shape[0], h2, w2).transpose(1, 2)
+        return y
 
-def batch_norm(bn, x: torch.Tensor, g: int) -> torch.Tensor:
-    """``bn`` (a ``blocks`` batch norm over C channels) on a folded
-    (N, G*C, h, w) tensor, with canonical per-C statistics."""
-    c = bn.num_features
-    shape = (1, g * c, 1, 1)
-    if not (bn.training and bn.track_running_stats):
-        inv, shift = blocks.eval_affine(bn)
-        return (x * inv.repeat(g).to(x.dtype).view(shape)
-                + shift.repeat(g).to(x.dtype).view(shape))
-    n, _, h, w = x.shape
-    xf = x.float()
-    xr = xf.view(n, g, c, h, w)
-    dims = (0, 1, 3, 4)
-    if bn.process_group is not None:
-        mean, var = blocks.group_moments(xr, dims, (1, 1, c, 1, 1), bn.process_group)
-    else:
-        mean = xr.mean(dims)
-        var = xr.square().mean(dims) - mean.square()
-    if not blocks.recomputing():
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            bn.num_batches_tracked += 1
-    inv = bn.weight * torch.rsqrt(var + bn.eps)
-    return ((xf - mean.repeat(g).view(shape)) * inv.repeat(g).view(shape)
-            + bn.bias.repeat(g).view(shape))
+    return fn, 1 if kind == "s2" else tiles
 
 
 def conv_block(block, x: torch.Tensor, d: int = 1) -> torch.Tensor:
     """``block`` (a ``blocks.ConvBlock``) on ``x`` folded with ``d`` planes
     (1 for 2-D).  Stride 1: folded out; stride 2: plain out."""
-    conv = block.conv
-    dims, dt = conv.weight.dim() - 2, conv.compute_dtype
-    x = x.to(dt)
-    w = conv.weight.to(dt)
-    if conv.stride[-1] == 1:
-        kern, pad = folded_kernel_s1(w, d, dims)
-        g = d * 4
-        y = _conv2d(conv, x, kern, _tiled_bias(conv, g), pad)
-        if block.bn is not None:
-            y = batch_norm(block.bn, y, g)
-    else:
-        kern, pad, do = folded_kernel_s2(w, d, dims)
-        y = _conv2d(conv, x, kern, _tiled_bias(conv, do), pad)
-        if dims == 3:
-            n, _, h2, w2 = y.shape
-            y = y.view(n, do, w.shape[0], h2, w2).transpose(1, 2)
-        if block.bn is not None:
-            y = block.bn(y.float())
-            if not block.training:
-                y = y.to(block.dtype)
-    return torch.relu(y) if block.relu else y
+    return block(x, *_folded_conv(block.conv, "s1" if block.conv.stride[-1] == 1 else "s2", d))
 
 
 def deconv_block(block, x: torch.Tensor, d_in: int = 1) -> torch.Tensor:
     """``block`` (a ``blocks.DeconvBlock``) on plain ``x`` with ``d_in``
     planes (1 for 2-D): folded out, with 2 * d_in planes."""
-    conv = block.conv
-    dims, dt = conv.weight.dim() - 2, conv.compute_dtype
-    if dims == 3:
-        x = fold_depth(x)
-    kern, pad, d_out = folded_kernel_deconv(conv.weight.to(dt), d_in, dims)
-    g = d_out * 4
-    y = _conv2d(conv, x.to(dt), kern, _tiled_bias(conv, g), pad)
-    if block.bn is not None:
-        y = batch_norm(block.bn, y, g)
-    return torch.relu(y) if block.relu else y
+    return block(x, *_folded_conv(block.conv, "deconv", d_in))
 
 
 def plain_conv(conv, x: torch.Tensor, d: int = 1) -> torch.Tensor:
     """``conv`` (a ``blocks.PlainConv``, stride 1) on ``x`` folded with
     ``d`` planes: folded out."""
-    dims, dt = conv.weight.dim() - 2, conv.compute_dtype
-    kern, pad = folded_kernel_s1(conv.weight.to(dt), d, dims)
-    return _conv2d(conv, x.to(dt), kern, _tiled_bias(conv, d * 4), pad)
-
-
-# ------------------------------------------------------------ cost model
-
-@contextlib.contextmanager
-def _on_copies(module, counter):
-    """Within the block (in train mode) ``module``'s buffers are copies, so
-    the counted unfolded call leaves the running statistics of the folded
-    call alone (and no tensor that a graph saved changes in place)."""
-    saved = {}
-    if module.training:
-        with counter.suspend():
-            for m in module.modules():
-                for name, b in m._buffers.items():
-                    if b is not None:
-                        saved[m, name] = b
-                        m._buffers[name] = b.clone()
-    try:
-        yield
-    finally:
-        for (m, name), b in saved.items():
-            m._buffers[name] = b
-
-
-def run(module, folded_fn, unfolded_fn, x: torch.Tensor):
-    """``folded_fn(x)``, the folded execution of ``module`` (a tensor or a
-    tuple of tensors).  Under the cost counter (``ops/warp_correlate.COUNTER``)
-    it runs with the aten count suspended and ``unfolded_fn(x)``, the
-    module's unfolded execution, is counted in its place; where a gradient
-    is needed, its backward too."""
-    counter = warp_correlate.COUNTER
-    if counter is None:
-        return folded_fn(x)
-    params = list(module.parameters())
-    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
-        ys = _CountedFold.apply(folded_fn, unfolded_fn, counter, module, x, *params)
-        return ys[0] if len(ys) == 1 else ys
-    with counter.suspend():
-        y = folded_fn(x)
-    with _on_copies(module, counter):
-        unfolded_fn(x)
-    return y
-
-
-def _tuple(y) -> tuple:
-    return y if isinstance(y, tuple) else (y,)
-
-
-class _CountedFold(torch.autograd.Function):
-    """A folded call under the cost counter that needs a gradient: forward
-    and backward run the folded graph with the count suspended and the
-    unfolded graph of the same parameters counted."""
-
-    @staticmethod
-    def forward(ctx, folded_fn, unfolded_fn, counter, module, x, *params):
-        with torch.enable_grad():
-            with counter.suspend():
-                xf = x.detach().requires_grad_(x.requires_grad)
-                ys = _tuple(folded_fn(xf))
-                xu = x.detach().requires_grad_(x.requires_grad)
-            with _on_copies(module, counter):
-                yus = _tuple(unfolded_fn(xu))
-        ctx.graphs = (xf, ys, xu, yus, params, counter)
-        return tuple(y.detach() for y in ys)
-
-    @staticmethod
-    def backward(ctx, *gys):
-        xf, ys, xu, yus, params, counter = ctx.graphs
-        del ctx.graphs
-        wrt = [i for i, t in enumerate((xf, *params)) if t.requires_grad]
-        with counter.suspend():
-            got = torch.autograd.grad(ys, [(xf, *params)[i] for i in wrt], gys,
-                                      allow_unused=True)
-        torch.autograd.grad(yus, [(xu, *params)[i] for i in wrt], gys, allow_unused=True)
-        grads = [None] * (1 + len(params))
-        for i, g in zip(wrt, got):
-            grads[i] = g
-        return (None, None, None, None, *grads)
+    return _folded_conv(conv, "s1", d)[0](x)
 
 
 def set_fold_level0(module, on: bool) -> None:

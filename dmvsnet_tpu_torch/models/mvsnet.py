@@ -70,8 +70,13 @@ package's ``train`` argument does.
   False folds nothing.  None is the port's default for the card, which in
   this package is unfolded everywhere: the JAX package's None (cost U-Nets
   folded, feature net not) was chosen on a TPU.  Parameters, names and
-  shapes are the same under every plan; ``engine/profiler``'s count is the
-  unfolded program's under every plan;
+  shapes are the same under every plan.  Where the plan is decided:
+  ``models/folded.level0`` per call of the feature net and of each U-Net
+  branch; the blocks of both plans run through ``models/blocks._Block``,
+  whose norm (``blocks._BiasedRunningVar``) holds all batch-norm
+  arithmetic; ``blocks.takes_fold`` is the count's rule: under
+  ``engine/profiler``'s count every call runs the unfolded program, so the
+  count is the same under every plan;
 * ``run_stages`` (a diagnostic, as in the JAX package): 0 runs every
   stage; k stops after k whole stages; a fraction stops part way through
   stage int(k) + 1 and returns what it reached under ``outputs["partial"]``:

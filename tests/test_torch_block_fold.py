@@ -15,7 +15,8 @@
   block that never folded;
 * the counter: ``blocks.fold_stats()`` counts folded and unfolded calls of
   batch-normed blocks and refreshes, for two blocks and for the whole
-  model's eval step;
+  model's eval step under the unfolded and the folded level-0 plan
+  (``fold_level0``);
 * on the card (``cuda``): the folded blocks, whose non-transposed
   convolutions with ReLU run cuDNN's fused convolution-bias-ReLU, against
   the conv, the norm and the ReLU one after the other, and against the
@@ -252,8 +253,13 @@ def _model_batch():
     return model.eval(), (batch["imgs"], batch["proj_matrices"], batch["depth_values"])
 
 
-def test_the_eval_step_folds_every_batch_normed_block_once():
+@pytest.mark.parametrize("plan", ["unfolded", "folded"])
+def test_the_eval_step_folds_every_batch_normed_block_once(plan):
+    """Under either level-0 plan (``fold_level0``): the folded plan hands
+    its blocks its folded convolutions, and their norms fold as well."""
     model, args = _model_batch()
+    if plan == "folded":
+        model.fold_level0 = True
     normed = [m for m in model.modules() if isinstance(m, blocks._Block) and m.bn is not None]
     infer = make_infer_step()
     depth, conf = infer(model, *args)
