@@ -17,7 +17,7 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
 
 1. the card (nvidia-smi name and power limit), torch / CUDA versions and
    the TF32 flags (pinned off: the port is held to the fp32 reference);
-2. build of the five hand-written CUDA kernels from dmvsnet_tpu_torch/csrc/
+2. build of the six hand-written CUDA kernels from dmvsnet_tpu_torch/csrc/
    (one nvcc per source, started together);
 3. the forward kernel vs its plain PyTorch version on the card at the six
    cost-pass shapes of DTU eval (864x1152, 5 views, batch 2, ndepths
@@ -147,8 +147,10 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    max(1, |stat|), each updated once; kernel 1 launched 6 + 6 recomputed
    times; ms per step and peak memory of both;
 22. "adaptive" (agg_mode="adaptive"): the CLI's dtu_test with seeded
-   weights (V-1 kernel-1 launches per pass), one batch on the kernel path
-   against the plain path (depth 0.05 mm, confidence 1e-3), ms per map; one
+   weights (one gated-pass launch per pass and dispatch; V-1 kernel-1
+   launches per pass in the counted summary forward, which runs pair by
+   pair), one batch on the kernel path against the plain path (depth
+   0.05 mm, confidence 1e-3), ms per map; one
    dtu_train step from phase 6's weights with seeded weight nets, kernel
    against plain path (LOSS_RTOL; PATH_GRAD_RTOL over all parameters and
    for the median; each parameter within the worst-parameter bound or 10x
@@ -200,10 +202,20 @@ utils/synthetic.orbit_camera_stack), each row naming its set:
    (``--rank-task spfold``) against the one-process folded forward (phase
    23's bounds).  Cost: phase 24's counts (a map, a train step) under the
    folded plan, equal to the unfolded counts;
-26. a "phases" line (wall seconds of each phase, and the convolution
+26. "gated", the gated adaptive pass (csrc/warp_correlate_gated.cu) on
+   one tank_adaptive map: the tank_test preset with agg_mode="adaptive" at
+   1056x1920, 11 views, seeded weights, one eval forward whose six gated
+   passes are captured (6 launches, no kernel-1 launch); per pass a "gated"
+   row: the kernel against its plain version (1e-4 * max(1, max|plain|)),
+   its time, the per-pair route's time on the same inputs (kernel 1 on each
+   of the 10 pairs, the folded weight net's convolutions, sigmoid, product
+   and sum: what the pass cost before) and the bound of kernel 1's count
+   (``pass_cost``);
+27. a "phases" line (wall seconds of each phase, and the convolution
    problems cuDNN searched over the whole smoke), a "kernels" JSON line
    (sums over the passes; bounds summed per pass; "model_ms" on the model's
-   inputs, "orbit_ms" on the orbit cameras, for all five kernels; launches
+   inputs, "orbit_ms" on the orbit cameras, for the first five kernels, and
+   for the gated pass its "tank adaptive" rows with "pairs_ms"; launches
    on each recipe path and "recipe_model_ms" on the recipes' tensors;
    launches on the dp, vp and sp paths and "vp_model_ms"; launches on the
    model options' and the folded plan's paths and "bf16_eval_model_ms"; the
@@ -240,6 +252,7 @@ from torch.nn.parallel import DistributedDataParallel
 
 from dmvsnet_tpu_torch import pin_fp32, resolve_device
 from dmvsnet_tpu_torch.core import epipolar, geometry, sampling
+from dmvsnet_tpu_torch.config import preset
 from dmvsnet_tpu_torch.data import io
 from dmvsnet_tpu_torch.data.general_eval import GeneralEvalDataset
 from dmvsnet_tpu_torch.data.loader import make_loader
@@ -318,6 +331,8 @@ GATE_H, GATE_W, GATE_V, PLANE_Z, GATE_STEPS = 96, 128, 4, 600.0, 80
 RECIPE_V = 11
 TANK_H, TANK_W, TANK_SNAP_H, TANK_BASELINE = 1080, 2048, 1056, 18.0
 TANK_SCENE = "SyntheticWide"
+# phase 26: one tank_adaptive map (the benchmark cell's 1056x1920, 11 views)
+ADAPTIVE_H, ADAPTIVE_W = 1056, 1920
 BMVS_H, BMVS_W, BMVS_V, BMVS_STEPS = 576, 768, 7, 3
 BMVS_SCENE = "synthetic_plane"
 # the "inputs" of the kernel rows on the recipes' own tensors (phases 11,
@@ -1188,7 +1203,7 @@ def train_path(dev, tmp: str, grad_trials: int = 0) -> tuple[dict, dict, list]:
     launches = cuda_build.launches()
     expected = {"warp_correlate": 6 * (steps + val_batches),
                 "warp_correlate_grad_ref": 6 * steps, "warp_correlate_grad_src": 6 * steps,
-                "resample": 0, "sweep1d": 0}
+                "resample": 0, "sweep1d": 0, "gated_warp_correlate": 0}
     if summary["step"] != steps or launches != expected:
         raise AssertionError(f"train path: {summary['step']} steps, launches {launches} "
                              f"(expected {steps} and {expected})")
@@ -1590,6 +1605,51 @@ def forward_timing(model, imgs, proj, dv) -> dict:
     return dict(ms_per_map=ms / B, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def gated_phase(dev) -> list[dict]:
+    """Phase 26: the gated adaptive pass on one tank_adaptive map.  The
+    tank_test preset with agg_mode="adaptive" at 1056x1920, 11 views, batch
+    1, seeded weights, one eval forward (6 gated launches, no kernel-1
+    launch) whose gated passes are captured; per pass the kernel against its
+    plain version, its time, and the per-pair route's time on the same
+    inputs (kernel 1 on each pair and the model's own gate, ``MVSNet._gate``,
+    as the route ran before the gated pass)."""
+    cfg = preset("tank_test", agg_mode="adaptive", max_h=ADAPTIVE_H, max_w=ADAPTIVE_W,
+                 filter_method="none")
+    model = build_train_model(cfg, dev).eval()
+    inputs = profiler.synthetic_inputs(cfg, 1, dev)
+    captured = []
+    cuda_build.reset_launches()
+    with capture_calls(wc, "gated_warp_correlate", captured), torch.inference_mode():
+        model(*inputs)
+    torch.cuda.synchronize()
+    launches = cuda_build.launches()
+    expect_launches("gated forward", launches, gated_warp_correlate=6)
+    if len(captured) != 6:
+        raise AssertionError(f"captured {len(captured)} gated passes, expected 6")
+    nets = [net for s in range(3) for net in (model.agg_weight[s], model.agg_weight_refine[s])]
+    rows = []
+    for name, net, (feats, rel, depth, gate) in zip(PASS_NAMES, nets, captured):
+        b, v, h, w, c = feats.shape
+        with torch.inference_mode():
+            got = wc.gated_warp_correlate(feats, rel, depth, gate)
+            want = wc.gated_warp_correlate_plain(feats, rel, depth, gate)
+            torch.cuda.synchronize()
+            err, tol = check_close(f"{name} (tank adaptive) gated pass", got, want)
+            del got, want
+            kernel_ms = time_ms(lambda: wc.gated_warp_correlate(feats, rel, depth, gate),
+                                KERNEL_REPS, KERNEL_INNER)
+            pairs_ms = time_ms(lambda: wc.adaptive_pairs(
+                feats, rel, depth, lambda sim: model._gate(name, net, sim)), 5)
+        nbytes, flops = pass_cost(b, v, depth.shape[1], h, w, c)
+        row = bound(dict(pass_=name, kernel="gated_warp_correlate", inputs="model tank adaptive",
+                         C=c, D=depth.shape[1], H=h, W=w, V=v, max_abs_err=err, tol=tol,
+                         kernel_ms=kernel_ms, pairs_ms=pairs_ms, bytes=nbytes, flops=flops,
+                         launches=1))
+        print("gated " + json.dumps({k.rstrip("_"): x for k, x in row.items()}), flush=True)
+        rows.append(row)
+    return rows
+
+
 def bf16_eval(dev, tmp: str) -> tuple[dict, list]:
     """Phase 19: the CLI's --test --preset dtu_test on phase 5's scene and
     seeded weights under each bf16 policy: launches, PFMs, depth and
@@ -1777,7 +1837,8 @@ def remat_phase(dev, inputs) -> dict:
 
 def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
     """Phase 22, agg_mode="adaptive": the CLI's dtu_test on phase 5's scene
-    with seeded weights (V-1 kernel-1 launches per pass); one batch of that
+    with seeded weights (a gated-pass launch per pass and dispatch, V-1
+    kernel-1 launches per pass in the counted forward); one batch of that
     model on the kernel path against the plain path (depth 0.05 mm,
     confidence 1e-3) and its ms per map; one dtu_train step from phase 6's
     weights with seeded weight nets, kernel path against plain path
@@ -1792,8 +1853,11 @@ def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
     summary = cli.main(argv)
     torch.cuda.synchronize()
     cli_launches = cuda_build.launches()
-    expect_launches("adaptive eval", cli_launches,
-                    warp_correlate=6 * per_pass * run_test_forwards(-(-V // B)))
+    # the dispatches take the gated pass; the counted summary forward runs
+    # pair by pair (no fold under the cost count)
+    dispatches = -(-V // B)
+    expect_launches("adaptive eval", cli_launches, gated_warp_correlate=6 * dispatches,
+                    warp_correlate=6 * per_pass * (run_test_forwards(dispatches) - dispatches))
     check_pfms(out_dir, V)
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     model = build_model(cfg, dev)
@@ -1808,7 +1872,7 @@ def adaptive_phase(dev, tmp: str, inputs, yardstick: dict) -> dict:
     cuda_build.reset_launches()
     out_k = forward("cuda")
     torch.cuda.synchronize()
-    expect_launches("adaptive forward", cuda_build.launches(), warp_correlate=6 * per_pass)
+    expect_launches("adaptive forward", cuda_build.launches(), gated_warp_correlate=6)
     d_err = (out_k["depth"] - out_p["depth"]).abs().max().item()
     c_err = (out_k["photometric_confidence"] - out_p["photometric_confidence"]).abs().max().item()
     if not (d_err <= 0.05 and c_err <= 1e-3 and bool(torch.isfinite(out_k["depth"]).all())):
@@ -2446,7 +2510,10 @@ def trace_kernel_events(trace_dir: str) -> dict[str, list[float]]:
     for e in events:
         if e.get("cat") != "kernel":
             continue
-        name = next((k for k in cuda_build.KERNELS if f"{k}_kernel" in e.get("name", "")), "other")
+        # the longest name that matches: gated_warp_correlate_kernel also
+        # holds warp_correlate_kernel
+        name = max((k for k in cuda_build.KERNELS if f"{k}_kernel" in e.get("name", "")),
+                   key=len, default="other")
         out[name].append(e.get("dur", 0.0) / 1e3)
     return out
 
@@ -2776,7 +2843,8 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
            fallback_launches, recipes: dict[str, dict], parallel: dict[str, dict],
            options: dict[str, dict]) -> None:
     """The "kernels" line, from the rows of the five kernels on synthetic
-    and model inputs; ``recipes`` are the launch counts of each recipe path
+    and model inputs and the gated pass's rows on one tank_adaptive map
+    (phase 26); ``recipes`` are the launch counts of each recipe path
     of phases 11-15, each read just after the path ran from counts at 0;
     ``parallel`` those of phases 16-18 and 23 (per rank on the gloo paths);
     ``options`` those of the model options' paths, phases 19-22, and of the
@@ -2862,7 +2930,23 @@ def report(every: list[dict], eval_launches, train_launches, epi_launches,
                      rows_of("resample", "synthetic"), model=rows_of("resample", "model eval")),
         kernel_entry("sweep1d", "epipolar_sweep.py:251", epi_launches["sweep1d"],
                      rows_of("sweep1d", "synthetic"), model=rows_of("sweep1d", "model eval")),
+        gated_entry(rows_of("gated_warp_correlate", "model tank adaptive"), options),
     ]}), flush=True)
+
+
+def gated_entry(rows: list[dict], options: dict[str, dict]) -> dict:
+    """The gated pass's entry of the "kernels" line: its six passes of one
+    tank_adaptive map (phase 26) summed, beside the per-pair route's time on
+    the same inputs and kernel 1's bound for the pass."""
+    return {"name": "gated_warp_correlate", "route": "cuda",
+            "source": "dmvsnet_tpu_torch/csrc/warp_correlate_gated.cu",
+            "replaces": "no TPU kernel: the adaptive pass's per-pair route",
+            "launches": sum(r["launches"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "model_ms": sum(r["kernel_ms"] for r in rows),
+            "pairs_ms": sum(r["pairs_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "option_launches": {path: n["gated_warp_correlate"] for path, n in options.items()}}
 
 
 def main() -> None:
@@ -2898,8 +2982,8 @@ def main() -> None:
         return out
 
     t0 = time.perf_counter()
-    if len(cuda_build.build()) != 5:
-        raise AssertionError(f"expected five kernels, built {sorted(cuda_build.build())}")
+    if len(cuda_build.build()) != 6:
+        raise AssertionError(f"expected six kernels, built {sorted(cuda_build.build())}")
     seconds["build"] = time.perf_counter() - t0
     print(f"build: {cuda_build.BUILD_INFO['seconds']:.2f}s with load "
           f"({time.perf_counter() - t0:.2f}s)", flush=True)
@@ -2935,7 +3019,8 @@ def main() -> None:
             eval_launches = cuda_build.launches()
             expected = {"warp_correlate": 6 * run_test_forwards(-(-V // B)),
                         "warp_correlate_grad_ref": 0,
-                        "warp_correlate_grad_src": 0, "resample": 0, "sweep1d": 0}
+                        "warp_correlate_grad_src": 0, "resample": 0, "sweep1d": 0,
+                        "gated_warp_correlate": 0}
             if summary["maps"] != V or eval_launches != expected:
                 raise AssertionError(f"main path: {summary['maps']} maps, launches "
                                      f"{eval_launches} (expected {V} and {expected})")
@@ -3025,6 +3110,9 @@ def main() -> None:
         adaptive = timed("adaptive", adaptive_phase, dev, tmp, inputs, yardstick)
         print("adaptive " + json.dumps(adaptive), flush=True)
         del inputs
+        gc.collect()
+        torch.cuda.empty_cache()
+        model += timed("gated", gated_phase, dev)
 
         # the spatial mesh axis: ranks sharing the one card over gloo, each
         # regularising its band of rows

@@ -21,10 +21,11 @@ and pass, ``train.*`` per phase; what each span launched, on any thread)
 and by hand-written kernel (``warp_correlate``, its two adjoints, and
 with ``--warp_impl epipolar`` ``resample`` and ``sweep1d``), the peak
 device memory of one more, ``conv_selections`` (the convolution
-problems cuDNN searched, all in the warm-up) and ``fold_stats`` (the
+problems cuDNN searched, all in the warm-up), ``fold_stats`` (the
 batch-normed blocks' folded and unfolded calls and fold refreshes over the
-warm-up, the session and that one more), then the session's table of ops
-by device time.
+warm-up, the session and that one more) and ``adaptive_stats`` (the
+adaptive cost passes by route, gated or per pair, over the same runs),
+then the session's table of ops by device time.
 
 ``--tf32`` measures only: the port itself pins fp32 (``pin_fp32``); the
 flag exists to measure what TF32 convolutions would change.
@@ -310,7 +311,10 @@ def span_ms(prof, reps: int = 1) -> dict[str, float]:
     out = {name: sum(d for t, d in launched if any(a <= t <= b for a, b in rs)) / 1e3 / reps
            for name, rs in sorted(ranges.items())}
     for row in prof.key_averages():
-        kernel = next((k for k in cuda_build.KERNELS if f"{k}_kernel" in row.key), None)
+        # the longest name that matches: gated_warp_correlate_kernel also
+        # holds warp_correlate_kernel
+        kernel = max((k for k in cuda_build.KERNELS if f"{k}_kernel" in row.key), key=len,
+                     default=None)
         if kernel:
             out[kernel] = out.get(kernel, 0.0) + row.self_device_time_total / 1e3 / reps
     return out
@@ -347,6 +351,7 @@ def main_train(args, device) -> None:
     step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
     blocks.reset_conv_selections()
     blocks.reset_fold_stats()
+    wc.reset_adaptive_stats()
     times, table = breakdown(lambda: step(model, optimizer, scheduler, batch))
     torch.cuda.reset_peak_memory_stats()
     step(model, optimizer, scheduler, batch)
@@ -356,7 +361,7 @@ def main_train(args, device) -> None:
         device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
         conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
-        peak_mem_gb=peak / 1e9, ms=times)),
+        adaptive_stats=wc.adaptive_stats(), peak_mem_gb=peak / 1e9, ms=times)),
         flush=True)
     print(table, flush=True)
 
@@ -393,6 +398,7 @@ def main(argv=None) -> None:
 
     blocks.reset_conv_selections()
     blocks.reset_fold_stats()
+    wc.reset_adaptive_stats()
     times, table = breakdown(forward)
     torch.cuda.reset_peak_memory_stats()
     forward()
@@ -401,7 +407,8 @@ def main(argv=None) -> None:
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
         **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
         conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
-        peak_mem_gb=peak / 1e9, ms_per_map=times["mvsnet.forward"] / args.batch,
+        adaptive_stats=wc.adaptive_stats(), peak_mem_gb=peak / 1e9,
+        ms_per_map=times["mvsnet.forward"] / args.batch,
         ms=times)), flush=True)
     print(table, flush=True)
 

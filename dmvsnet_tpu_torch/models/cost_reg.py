@@ -21,6 +21,9 @@ TPU, and routing on the card comes from measurements on the card.
 
 ``AggWeightNetVolume`` is the per-voxel view-weight net of
 ``agg_mode="adaptive"``: two 1x1x1 ConvBlocks (batch norm, ReLU), 2 -> 1 -> 1.
+Where both fold their eval norm, ``gate_params`` packs the net for the
+gated cost pass (``ops/warp_correlate.aggregate_cost_volume_gated``), which
+computes it inside the pass.
 """
 
 from __future__ import annotations
@@ -146,5 +149,24 @@ class AggWeightNetVolume(nn.Module):
         self.w0 = ConvBlock(in_channels, hid_channels, kernel=1, dims=3, dtype=dtype)
         self.w1 = ConvBlock(hid_channels, out_channels, kernel=1, dims=3, dtype=dtype)
 
+    _packed = None  # (the blocks' folded pairs, the packed gate), set by gate_params
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w1(self.w0(x))
+
+    def gate_params(self) -> torch.Tensor | None:
+        """The net as the gated cost pass takes it: the (5,) fp32 tensor
+        ``w00, w01, b0, a1, b1`` (``ops/warp_correlate
+        .gated_warp_correlate_plain``) where the net is 2 -> 1 -> 1 and both
+        blocks fold their eval norm into the convolution (``_Block._folds``:
+        eval norms, fp32, autograd off, no cost count), else None.  Packed
+        on the device from the blocks' folded pairs (``_Block._folded``)
+        and kept until a block forms its pair anew."""
+        shapes = (tuple(self.w0.conv.weight.shape), tuple(self.w1.conv.weight.shape))
+        if shapes != ((1, 2, 1, 1, 1), (1, 1, 1, 1, 1)) or not (self.w0._folds()
+                                                               and self.w1._folds()):
+            return None
+        folds = (*self.w0._folded(), *self.w1._folded())
+        if self._packed is None or any(a is not b for a, b in zip(self._packed[0], folds)):
+            self._packed = (folds, torch.cat([f.reshape(-1) for f in folds]).float())
+        return self._packed[1]

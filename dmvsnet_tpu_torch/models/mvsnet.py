@@ -48,8 +48,16 @@ package's ``train`` argument does.
   source views;
 * ``agg_mode="adaptive"`` gates each source view's correlation by a learned
   per-voxel weight before the view sum (``models/cost_reg.AggWeightNetVolume``,
-  one net per stage and pass, called once per source view; kernel 1 on each
-  (reference, source) pair: ``warp_correlate.aggregate_cost_volume_adaptive``).
+  one net per stage and pass).  Where the net's two blocks fold their eval
+  norms (eval, fp32, autograd off, no cost count:
+  ``AggWeightNetVolume.gate_params``) and the features have C in
+  ``warp_correlate.CHANNELS``, a pass is one gated pass that warps,
+  correlates, gates and sums every source view
+  (``warp_correlate.aggregate_cost_volume_gated``, one kernel launch);
+  otherwise (training, eval with grad, the bf16 policies, the count) it
+  runs pair by pair, kernel 1 on each (reference, source) pair and the net
+  called once per source view (``warp_correlate.aggregate_cost_volume_adaptive``).
+  ``warp_correlate.adaptive_stats()`` counts the passes of each route.
   It takes precedence over the vp sum and the epipolar routing, as in the
   JAX package;
 * dtypes as in the JAX package: ``dtype`` (compute) is what the features
@@ -265,9 +273,17 @@ class MVSNet(nn.Module):
                 engaged, cost_span = None, f"{name}.{p}.cost"
                 if self.agg_mode == "adaptive":
                     with span(cost_span):
-                        cost = warp_correlate.aggregate_cost_volume_adaptive(
-                            feats[key], proj2, dv,
-                            lambda sim: self._gate(f"{name}.{p}.gate", weight_net, sim), impl)
+                        gate = (weight_net.gate_params()
+                                if feats[key].shape[-1] in warp_correlate.CHANNELS else None)
+                        if gate is not None:
+                            with span(f"{name}.{p}.gate"):
+                                cost = warp_correlate.aggregate_cost_volume_gated(
+                                    feats[key], proj2, dv, gate, impl)
+                        else:
+                            cost = warp_correlate.aggregate_cost_volume_adaptive(
+                                feats[key], proj2, dv,
+                                lambda sim: self._gate(f"{name}.{p}.gate", weight_net, sim),
+                                impl)
                 elif vp > 1 and (v - 1) % vp == 0:
                     cost = self._remat(cost_span, warp_correlate.aggregate_cost_volume_view_sharded,
                                        feats[key], proj2, dv, self.mesh, impl)

@@ -17,8 +17,12 @@ H100 and what its design does about that):
   ``_make_grad_src_kernel``: the adjoint w.r.t. the source features, a
   scatter that sums a pixel's consecutive planes in registers while they
   share a bilinear cell, before its atomic adds reach device memory.
+* ``gated_warp_correlate`` (``warp_correlate_gated.cu``) replaces no TPU
+  kernel: the adaptive cost pass of one (stage, pass) in one launch, each
+  source view's correlation gated by the weight net's folded eval form and
+  summed in registers (``aggregate_cost_volume_gated``).  Forward only.
 
-All three take the sampling geometry from ``csrc/warp_geometry.cuh``, so
+All four take the sampling geometry from ``csrc/warp_geometry.cuh``, so
 the adjoints see bit for bit the taps and weights of the forward.  The
 sampling grid carries no gradient: ``rel`` and ``depth`` get ``None``, as
 the JAX package's custom VJP gives them zero cotangents.
@@ -35,7 +39,8 @@ counter is active (``COUNTER``, installed by
 ``engine/profiler.cost_analysis``) the pass reports one canonical count,
 ``pass_cost`` forward and ``adjoint_cost`` with every tap backward, whatever
 computes it (kernel or plain version, the epipolar sweep, one call per view
-pair), and the aten ops inside it are not counted on top.
+pair), and the aten ops inside it are not counted on top.  The gated pass
+does not: the model takes it only while no counter is active.
 
 The kernels are fp32 end to end.  The cost-pass entries
 (``aggregate_cost_volume``, its view-sharded and adaptive forms) upcast
@@ -46,6 +51,8 @@ returns the feature gradient through the upcast in the caller's dtype.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -68,7 +75,33 @@ LAUNCHES: dict[str, int] = cuda_build.declare({
                                 _GEOMETRY),
     "warp_correlate_grad_src": ("warp_correlate_grad_src.cu", cuda_build.pointer_ints(6, 6),
                                 _GEOMETRY),
+    "gated_warp_correlate": ("warp_correlate_gated.cu", cuda_build.pointer_ints(5, 6),
+                             _GEOMETRY),
 })
+
+# adaptive cost passes by route since the last reset: "gated", one launch
+# of the gated pass (aggregate_cost_volume_gated); "per_pair", a pass run
+# pair by pair (aggregate_cost_volume_adaptive)
+_ADAPTIVE_STATS = {"gated": 0, "per_pair": 0}
+_ADAPTIVE_STATS_LOCK = threading.Lock()
+
+
+def adaptive_stats() -> dict[str, int]:
+    """Adaptive cost passes since the last reset, by route: ``gated`` and
+    ``per_pair``."""
+    with _ADAPTIVE_STATS_LOCK:
+        return dict(_ADAPTIVE_STATS)
+
+
+def reset_adaptive_stats() -> None:
+    with _ADAPTIVE_STATS_LOCK:
+        for k in _ADAPTIVE_STATS:
+            _ADAPTIVE_STATS[k] = 0
+
+
+def _count_adaptive(route: str) -> None:
+    with _ADAPTIVE_STATS_LOCK:
+        _ADAPTIVE_STATS[route] += 1
 
 
 # The active cost counter, or None: an object with ``add(kind, nbytes,
@@ -305,6 +338,57 @@ def warp_correlate(
     return _WarpCorrelate.apply(feats, rel, depth)
 
 
+def gated_warp_correlate_plain(
+    feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor, gate: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of the gated pass, same contract.
+
+    Args:
+      feats, rel, depth: as in warp_correlate_plain.
+      gate: (5,) fp32 ``w00, w01, b0, a1, b1``, the weight net's two 1x1x1
+        blocks (2 -> 1 -> 1 channels) with their eval norms folded in
+        (``models/cost_reg.AggWeightNetVolume.gate_params``).
+
+    Returns:
+      (B, D, H, W, 2) fp32: per source view v, its pair's correlation c_v
+      (``warp_correlate_plain`` on the pair) times
+      ``1 / (1 + exp(-relu(a1 * relu(w00 c_v0 + w01 c_v1 + b0) + b1)))``,
+      summed in view order.
+    """
+    w00, w01, b0, a1, b1 = gate.unbind()
+    total = None
+    for i in range(1, feats.shape[1]):
+        corr = warp_correlate_plain(feats[:, [0, i]], rel[:, i - 1:i], depth)
+        c0, c1 = corr.unbind(-1)
+        h = torch.relu(w00 * c0 + w01 * c1 + b0)
+        s = 1.0 / (1.0 + torch.exp(-torch.relu(a1 * h + b1)))
+        gated = corr * s[..., None]
+        total = gated if total is None else total + gated
+    return total
+
+
+def gated_warp_correlate(
+    feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor, gate: torch.Tensor
+) -> torch.Tensor:
+    """The gated pass: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors.  Contract as in gated_warp_correlate_plain.  The kernel
+    has no adjoint, so on the card it refuses inputs that need a
+    gradient."""
+    _check(feats, rel, depth)
+    if tuple(gate.shape) != (5,) or gate.dtype != torch.float32 or gate.device != feats.device:
+        raise ValueError(f"gate must be a (5,) float32 tensor on {feats.device}, got "
+                         f"{tuple(gate.shape)} {gate.dtype} on {gate.device}")
+    if feats.device.type == "cpu":
+        return gated_warp_correlate_plain(feats, rel, depth, gate)
+    if torch.is_grad_enabled() and (feats.requires_grad or gate.requires_grad):
+        raise ValueError("the gated pass has no adjoint: run it with autograd off")
+    b, _, h, w, _ = feats.shape
+    _check_tap_code(h, w)
+    out = torch.empty((b, depth.shape[1], h, w, 2), dtype=torch.float32, device=feats.device)
+    _launch("gated_warp_correlate", feats, rel, depth, gate, out, out=out)
+    return out
+
+
 def warp_correlate_grad_ref(
     feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor, cot: torch.Tensor,
     out: torch.Tensor | None = None,
@@ -398,12 +482,13 @@ def aggregate_cost_volume_adaptive(
     feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, gate_fn,
     impl: str = "cuda",
 ) -> torch.Tensor:
-    """The adaptive cost pass (port of
+    """The adaptive cost pass pair by pair (port of
     ``dmvsnet_tpu.ops.warp.aggregate_cost_volume_adaptive``): per source
     view v, kernel 1 on the (reference, source v) pair (a launch with V = 2;
     its backward the two adjoint kernels on that pair), gated by
-    ``gate_fn`` and summed in view order.  ``impl="torch"``, or CPU
-    tensors, take the plain version per pair.
+    ``gate_fn`` and summed in view order (``adaptive_pairs``).
+    ``impl="torch"``, or CPU tensors, take the plain version per pair.
+    Counts one ``per_pair`` pass in ``adaptive_stats``.
 
     Args: as ``aggregate_cost_volume``, plus ``gate_fn``: one pair's
     (B, D, H, W, 2) fp32 correlation -> the gated (B, D, H, W, 2) fp32
@@ -413,13 +498,38 @@ def aggregate_cost_volume_adaptive(
       (B, D, H, W, 2) fp32.  Differentiable w.r.t. ``feats`` and whatever
       ``gate_fn`` holds.
     """
+    _count_adaptive("per_pair")
+    return adaptive_pairs(*pass_inputs(feats, proj2, depth_values), gate_fn, impl)
+
+
+def adaptive_pairs(feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor, gate_fn,
+                   impl: str = "cuda") -> torch.Tensor:
+    """The per-pair loop of ``aggregate_cost_volume_adaptive`` on a pass's
+    inputs (``pass_inputs``)."""
     fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
-    feats, rel, dv = pass_inputs(feats, proj2, depth_values)
     total = None
     for i in range(1, feats.shape[1]):
-        corr = gate_fn(counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), dv))
+        corr = gate_fn(counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), depth))
         total = corr if total is None else total + corr
     return total
+
+
+def aggregate_cost_volume_gated(
+    feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, gate: torch.Tensor,
+    impl: str = "cuda",
+) -> torch.Tensor:
+    """The adaptive cost pass in one gated pass: for a weight net whose
+    eval norms fold into its convolutions (``gate``, as in
+    ``gated_warp_correlate_plain``), what ``aggregate_cost_volume_adaptive``
+    computes with ``MVSNet._gate``, up to rounding.  Relative projections
+    in fp32 torch, then the gated kernel (``impl="cuda"``, which runs the
+    plain version on CPU tensors) or the plain version (``impl="torch"``).
+    Forward only, and not seen by a cost counter: the model takes it only
+    with autograd off and no count running.  Counts one ``gated`` pass in
+    ``adaptive_stats``."""
+    fn = {"cuda": gated_warp_correlate, "torch": gated_warp_correlate_plain}[impl]
+    _count_adaptive("gated")
+    return fn(*pass_inputs(feats, proj2, depth_values), gate)
 
 
 def aggregate_cost_volume_view_sharded(

@@ -11,8 +11,10 @@ the size of tests/test_torch_remat.py (32x64, 3 views, batch 1, ndepths
   with the forward inside ``train.forward``; under remat the recomputed
   feature net, cost passes and cost U-Nets open their spans again inside
   ``train.backward``; ``train.load`` marks every fetch of a loader; an
-  adaptive forward adds V - 1 ``mvsnet.s{k}.{p}.gate`` spans inside each
-  pass's ``cost`` span, a variance forward none;
+  adaptive forward adds ``mvsnet.s{k}.{p}.gate`` spans inside each pass's
+  ``cost`` span: one around the gated pass where the weight nets fold (an
+  fp32 eval forward without autograd), V - 1, one per source view, on the
+  per-pair route (with autograd on); a variance forward none;
 * outputs, gradients and running statistics are equal bit for bit with the
   profiler on and off (under deterministic algorithms, as the remat test);
 * ``engine/profiler.breakdown`` reports every span of a forward and of a
@@ -182,23 +184,25 @@ def test_a_train_step_records_its_phases_and_the_forward(weights, host_batch, tm
             assert _within(recomputed, name, "train.backward"), name
 
 
-def _adaptive_forward(host_batch) -> None:
+def _adaptive_forward(host_batch, grad: bool = False) -> None:
     model = _model(agg_mode="adaptive")
     init_weights(model, torch.Generator().manual_seed(1))
     batch = shard_batch(host_batch, make_mesh(1))
-    with torch.inference_mode():
+    with torch.enable_grad() if grad else torch.inference_mode():
         model.eval()(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
 
 
-@pytest.mark.parametrize("agg_mode", ["adaptive", "variance"])
+@pytest.mark.parametrize("agg_mode", ["adaptive", "adaptive_per_pair", "variance"])
 def test_the_adaptive_gate_is_a_span_per_source_view(weights, host_batch, tmp_path, agg_mode):
-    """Each (stage, pass) of an adaptive forward opens V - 1 ``gate`` spans,
-    one per source view, inside its ``cost`` span; a variance forward opens
-    none."""
-    run = (lambda: _adaptive_forward(host_batch)) if agg_mode == "adaptive" else \
-        (lambda: _forward(weights, host_batch))
+    """Each (stage, pass) of an adaptive forward opens ``gate`` spans inside
+    its ``cost`` span: one around the gated pass in an fp32 eval forward
+    without autograd, V - 1, one per source view, on the per-pair route
+    (the same forward with autograd on); a variance forward opens none."""
+    run = {"adaptive": lambda: _adaptive_forward(host_batch),
+           "adaptive_per_pair": lambda: _adaptive_forward(host_batch, grad=True),
+           "variance": lambda: _forward(weights, host_batch)}[agg_mode]
     spans = _spans(run, tmp_path)
-    per_pass = V - 1 if agg_mode == "adaptive" else 0
+    per_pass = {"adaptive": 1, "adaptive_per_pair": V - 1, "variance": 0}[agg_mode]
     passes = [f"mvsnet.s{k}.{p}" for k in (1, 2, 3) for p in ("main", "refine")]
     assert sorted(n for n, *_ in spans if n.endswith(".gate")) == sorted(
         f"{p}.gate" for p in passes for _ in range(per_pass))

@@ -170,7 +170,10 @@ def test_cuda_adjoint_kernels_match_plain_on_card(rng, cams):
         before = dict(twc.LAUNCHES)
         twc.warp_correlate(f, r, dep).backward(cot)
         torch.cuda.synchronize()
-        assert {k: twc.LAUNCHES[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+        # one launch of each of kernels 1-3; the gated pass (forward only,
+        # eval) none
+        assert {k: twc.LAUNCHES[k] - before[k] for k in before} == {
+            **dict.fromkeys(before, 1), "gated_warp_correlate": 0}
         assert r.grad is None and dep.grad is None
         want = twc.warp_correlate_grad_plain(feats, rel, depth, cot)
         tol = 1e-4 * max(1.0, want.abs().max().item())
@@ -345,7 +348,8 @@ def test_cuda_per_view_kernel_on_card(rng):
             (cost * cot).sum().backward()
             torch.cuda.synchronize()
             launched = {k: twc.LAUNCHES[k] - before[k] for k in before}
-            assert launched == dict.fromkeys(before, v - 1 if impl == "cuda" else 0), launched
+            assert launched == {**dict.fromkeys(before, v - 1 if impl == "cuda" else 0),
+                                "gated_warp_correlate": 0}, launched
             out[impl] = (cost.detach(), f.grad)
         for got, want in zip(out["cuda"], out["torch"]):
             assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item()), c
