@@ -13,10 +13,12 @@ program's ``engine/profiler.cost_analysis`` gives (held by
   taps (``torch.utils.flop_counter``'s registry), their backward where the
   call differentiates; every cost pass at ``pass_cost`` and, where its
   features need a gradient, both ``adjoint_cost`` with every tap; batch
-  norm 4 per element (7 with batch statistics), its backward 8; softmax 5,
-  its backward 4; bilinear upsampling 8; reductions 1 per input element
-  (variances 3); an accumulating scatter 1 per value; every other
-  pointwise op 1 per output element.  Nothing else counts.
+  norm 4 per element (7 with batch statistics), its backward 8; layer and
+  group norm as batch norm with batch statistics, 7 per element, their
+  backward 8 (the benchmark's own rule, not the copy's: DMVSNet runs
+  neither); softmax 5, its backward 4; bilinear upsampling 8; reductions 1
+  per input element (variances 3); an accumulating scatter 1 per value;
+  every other pointwise op 1 per output element.  Nothing else counts.
 * Bytes: each op's tensor arguments and outputs at their logical size,
   except views, aliases and allocations; write-only ops their outputs;
   each cost pass its least bytes.
@@ -46,6 +48,10 @@ _BN_FORWARD = {"native_batch_norm", "cudnn_batch_norm", "miopen_batch_norm",
                "_batch_norm_with_update", "_batch_norm_no_update"}
 _BN_BACKWARD = {"native_batch_norm_backward", "cudnn_batch_norm_backward",
                 "miopen_batch_norm_backward", "batch_norm_backward"}
+# layer and group norm normalise by statistics of their own input, as a
+# batch norm in training does
+_NORM = {"native_layer_norm": 7, "native_group_norm": 7, "native_layer_norm_backward": 8,
+         "native_group_norm_backward": 8}
 _PER_OUTPUT = {"_softmax": 5, "_log_softmax": 5, "_softmax_backward_data": 4,
                "_log_softmax_backward_data": 4, "upsample_bilinear2d": 8,
                "upsample_bilinear2d_backward": 8}
@@ -98,6 +104,8 @@ def _op_flops(func, args, kwargs, out) -> tuple[str, int]:
         return "batch_norm", (7 if training else 4) * args[0].numel()
     if name in _BN_BACKWARD:
         return "batch_norm", 8 * args[0].numel()
+    if name in _NORM:
+        return "norm", _NORM[name] * args[0].numel()
     if name in _PER_OUTPUT:
         kind = "softmax" if "softmax" in name else "resample"
         return kind, _PER_OUTPUT[name] * _tensors(out)[0].numel()

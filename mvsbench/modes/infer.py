@@ -7,6 +7,15 @@ dispatch of the window is ``run_test``'s: the host arrays of one batch to
 the device, ``engine.steps.make_infer_step()``, depth and confidence back
 to host arrays.  The window cycles through the pool's batches.
 
+What a model must give this mode, whatever its architecture:
+``model(imgs, proj_matrices, depth_values)`` returns a dict with ``depth``
+and ``photometric_confidence`` (what ``make_infer_step`` hands back) and,
+for each stage k = 1 .. len(ndepths), ``stage{k}`` holding that stage's
+``depth`` (B, H_k, W_k) and ``prob_volume``; the last stage's depth is the
+final one.  The configuration's reference returns the same keys.  The
+traced run spans ``feature`` and the cost regularisation modules where the
+model has them (``spans``).
+
 What is compared with the configuration's reference
 (``harness.reference_module``: ``mvsbench/reference``, fp32, TF32 off, on
 the same weights and inputs) once the window has closed: the final
@@ -124,13 +133,19 @@ def info(state) -> dict:
 
 
 def spans(state, spans, stack) -> None:
+    """Spans around what the model has: ``feature`` and every module of
+    ``cost_regularization`` and ``cost_regularization_refine`` where it
+    has them, and the port's ``aggregate_cost_volume``."""
     from dmvsnet_tpu_torch.ops import warp_correlate
 
     from mvsbench.spans import module_span, wrap
 
-    module_span(state.model.feature, spans, "feature", stack)
-    for reg in (*state.model.cost_regularization, *state.model.cost_regularization_refine):
-        module_span(reg, spans, "costreg", stack)
+    model = state.model
+    if hasattr(model, "feature"):
+        module_span(model.feature, spans, "feature", stack)
+    for name in ("cost_regularization", "cost_regularization_refine"):
+        for reg in getattr(model, name, ()):
+            module_span(reg, spans, "costreg", stack)
     wrap(warp_correlate, "aggregate_cost_volume", spans, "cost_pass", stack)
 
 

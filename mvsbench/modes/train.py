@@ -26,6 +26,8 @@ Compared, once the window has closed:
 * ``stats``: the batch norms' running statistics' change in the first
   step, by the worst buffer, the same measure (over three steps the
   parameters' round-off, amplified by Adam's first steps, dominates it).
+  Only the state dict's buffers count (a non-persistent buffer is a
+  constant), and a model without any has no ``stats``.
 
 The run's ``checked`` line names the parameter or buffer that gave each of
 the last three.
@@ -53,10 +55,10 @@ BETA1 = 0.9
 
 
 def _snapshot(model) -> dict[str, torch.Tensor]:
-    out = {n: p.detach().clone() for n, p in model.named_parameters()}
-    out.update({n: b.detach().clone() for n, b in model.named_buffers()
-                if b.is_floating_point()})
-    return out
+    """The float entries of the state dict: parameters and persistent buffers
+    (a non-persistent buffer is a constant the seed does not fill)."""
+    return {n: v.detach().clone() for n, v in model.state_dict().items()
+            if v.is_floating_point()}
 
 
 def setup(ctx):
@@ -128,7 +130,7 @@ def checked_steps(state) -> None:
             state.grad1 = {n: state.optimizer.state[p]["exp_avg"].detach() / (1.0 - BETA1)
                            for n, p in model.named_parameters() if p in state.optimizer.state}
             state.stats1 = {n: b.detach().clone() for n, b in model.named_buffers()
-                            if b.is_floating_point()}
+                            if n in state.theta0}
     state.theta3 = _snapshot(model)
     state.losses = [float(x) for x in state.losses]
     state.marks.append(("checked_steps", time.perf_counter()))
@@ -258,7 +260,7 @@ def check(state) -> tuple[dict, int]:
             if i == 0:
                 grads = {n: p.grad.detach().clone() for n, p in params.items()}
                 stats1 = {n: b.detach().clone() for n, b in ref.named_buffers()
-                          if b.is_floating_point()}
+                          if n in theta0}
             adam.step(ref_loss.steplr(i, t["lr"], t["steps_per_epoch"], t["warmup"],
                                       t["milestones"], t["lr_decay"]))
     finally:
@@ -270,8 +272,9 @@ def check(state) -> tuple[dict, int]:
     moving = [n for n in names if norms[n] >= 1e-3 * med]
     delta = lambda th: {n: th[n] - theta0[n] for n in th}  # noqa: E731
     worst = {"grad": _worst(grad1, grads, names),
-             "update": _worst(delta(theta3), delta(theta_ref), moving),
-             "stats": _worst(delta(state.stats1), delta(stats1), list(stats1))}
+             "update": _worst(delta(theta3), delta(theta_ref), moving)}
+    if stats1:
+        worst["stats"] = _worst(delta(state.stats1), delta(stats1), list(stats1))
     numbers = {"loss": max(abs(a - b) / abs(b) for a, b in zip(state.losses, losses)),
                **{k: v for k, (v, _) in worst.items()}}
     state.ref_losses = losses

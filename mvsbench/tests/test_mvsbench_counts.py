@@ -165,3 +165,16 @@ def test_least_seconds_from_the_recorded_passes_equal_the_formula(cell):
     assert counts.warp_correlate_least_seconds(forward, *args) == _formula_least_seconds(
         config, workload, *args)
     assert counts.warp_correlate_least_seconds(forward, *args, backward=True) == 0.0
+
+
+@pytest.mark.parametrize("norm,shape", [(lambda: torch.nn.LayerNorm(8), (2, 5, 8)),
+                                        (lambda: torch.nn.GroupNorm(2, 8), (2, 8, 3, 5))],
+                         ids=["layer_norm", "group_norm"])
+def test_layer_and_group_norm_count_as_batch_norm_with_batch_statistics(norm, shape):
+    module, x = norm(), torch.zeros(shape, requires_grad=True)
+    with counts.counting() as counter:
+        module(x)
+    assert {k: v for k, v in counter.flops.items() if v} == {"norm": 7 * x.numel()}
+    with counts.counting() as counter:
+        module(x).sum().backward()
+    assert counter.flops["norm"] == (7 + 8) * x.numel()
