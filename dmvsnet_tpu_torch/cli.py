@@ -37,8 +37,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
     # network
+    p.add_argument("--architecture", default=None, choices=["dmvsnet", "transmvsnet"],
+                   help="the network: DMVSNet, or TransMVSNet (inference; it weights "
+                        "views pixel by pixel, agg_mode pixelwise)")
     p.add_argument("--fea_mode", default=None, choices=["fpn", "unet", "hrnet"])
-    p.add_argument("--agg_mode", default=None, choices=["variance", "adaptive"])
+    p.add_argument("--agg_mode", default=None, choices=["variance", "adaptive"],
+                   help="DMVSNet's view aggregation")
     p.add_argument("--depth_mode", default=None,
                    choices=["regression", "classification", "unification", "gfocal"])
     p.add_argument("--ndepths", type=int, nargs="+", default=None)
@@ -127,6 +131,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
     field_names = {f.name for f in dataclasses.fields(Config)}
     overrides = {k: v for k, v in vars(args).items()
                  if k in field_names and v is not None}
+    if overrides.get("architecture") == "transmvsnet":
+        overrides.setdefault("agg_mode", "pixelwise")
     return cfg.replace(**overrides)
 
 

@@ -23,8 +23,9 @@ from typing import Sequence
 @dataclass
 class Config:
     # network
+    architecture: str = "dmvsnet"  # dmvsnet | transmvsnet (inference only, agg_mode pixelwise)
     fea_mode: str = "fpn"
-    agg_mode: str = "variance"
+    agg_mode: str = "variance"  # variance | adaptive (dmvsnet) | pixelwise (transmvsnet)
     depth_mode: str = "regression"
     ndepths: Sequence[int] = (48, 32, 8)
     interval_ratio: Sequence[float] = (4.0, 2.0, 1.0)

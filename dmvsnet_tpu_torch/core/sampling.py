@@ -6,6 +6,11 @@ dmvsnet_tpu.core.sampling).
 * cascade stages: per-pixel asymmetric windows around the previous depth,
   the "minus" window on one checkerboard phase and its mirror on the
   other, with inverse-depth twins.
+
+``uniform_samples`` and ``uniform_window_samples`` are CasMVSNet's plain
+hypotheses (``get_depth_range_samples``), which TransMVSNet takes: one
+uniform fan over the range at stage 1, then a symmetric window around the
+previous depth, laid out at full resolution and resized to the stage's.
 """
 
 from __future__ import annotations
@@ -101,3 +106,31 @@ def upsample_depth_samples(samples: torch.Tensor, height: int, width: int) -> to
     half-pixel centres (``align_corners=False``)."""
     return F.interpolate(samples, size=(height, width), mode="bilinear",
                          align_corners=False)
+
+
+def uniform_samples(depth_values: torch.Tensor, ndepth: int, height: int,
+                    width: int) -> torch.Tensor:
+    """Stage-1 hypotheses of the cascade without checkerboard: ``ndepth``
+    planes from ``depth_values[:, 0]`` to ``depth_values[:, -1]`` in steps
+    of (max - min) / (ndepth - 1), as (B, ndepth, height, width) fp32."""
+    depth_values = depth_values.float()
+    dmin, dmax = depth_values[:, 0], depth_values[:, -1]
+    flat = _fan(dmin, (dmax - dmin) / (ndepth - 1), ndepth)
+    return flat[:, :, None, None].expand(depth_values.shape[0], ndepth, height, width)
+
+
+def uniform_window_samples(last_depth: torch.Tensor, ndepth: int, interval: torch.Tensor,
+                           full: tuple[int, int], height: int, width: int) -> torch.Tensor:
+    """Later-stage hypotheses of the cascade without checkerboard: the
+    previous (B, h, w) depth resized bilinearly to the ``full`` image size
+    (half-pixel centres), ``ndepth`` uniform planes over
+    [d - ndepth/2 * interval, d + ndepth/2 * interval] there, then resized
+    bilinearly to (height, width).  (B, ndepth, height, width) fp32."""
+    depth = F.interpolate(last_depth.float()[:, None], size=full, mode="bilinear",
+                          align_corners=False)[:, 0]
+    lo = depth - ndepth / 2 * interval
+    hi = depth + ndepth / 2 * interval
+    samples = _fan(lo, (hi - lo) / (ndepth - 1), ndepth)
+    if tuple(full) == (height, width):
+        return samples
+    return upsample_depth_samples(samples, height, width)

@@ -33,11 +33,11 @@ from dmvsnet_tpu_torch.engine.profiler import model_summary
 from dmvsnet_tpu_torch.engine.steps import make_infer_step
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
 from dmvsnet_tpu_torch.fusion import TANK_SCENE_CONFIG, dypcd_filter, pcd_filter
-from dmvsnet_tpu_torch.models import MVSNet
 
 
-def build_model(cfg: Config, device: torch.device) -> MVSNet:
-    """The eval MVSNet of ``cfg`` on ``device``: weights from ``cfg.resume``
+def build_model(cfg: Config, device: torch.device) -> torch.nn.Module:
+    """The eval network of ``cfg`` on ``device`` (``MVSNet``, or
+    ``TransMVSNet`` under ``cfg.architecture``): weights from ``cfg.resume``
     (a reference-layout torch state dict, or a checkpoint holding one under
     "model"), else a seeded random init from ``cfg.seed``."""
     model = build_train_model(cfg, device)

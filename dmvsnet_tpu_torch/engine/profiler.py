@@ -5,7 +5,9 @@
 
 Both take the model options of the CLI: ``--compute_dtype``,
 ``--costreg_dtype``, ``--feature_dtype`` (auto | float32 | bfloat16),
-``--agg_mode`` (variance | adaptive) and, with ``--train``, ``--remat``;
+``--agg_mode`` (variance | adaptive), ``--architecture`` (dmvsnet |
+transmvsnet, eval only; TransMVSNet weights its views pixel by pixel) and,
+with ``--train``, ``--remat``;
 and ``--fold``, which runs the folded level-0 plan
 (``MVSNet.fold_level0 = True``, ``models/folded.py``).
 
@@ -59,8 +61,8 @@ from dmvsnet_tpu_torch.config import preset
 from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_infer_step, make_train_step
 from dmvsnet_tpu_torch.engine.train import build_model as build_train_model
-from dmvsnet_tpu_torch.models import blocks
-from dmvsnet_tpu_torch.ops import cuda_build
+from dmvsnet_tpu_torch.models import blocks, transmvsnet
+from dmvsnet_tpu_torch.ops import cuda_build, deform_conv
 from dmvsnet_tpu_torch.ops import warp_correlate as wc
 from dmvsnet_tpu_torch.utils import synthetic, trace
 
@@ -78,6 +80,10 @@ _BN_FORWARD = {"native_batch_norm", "cudnn_batch_norm", "miopen_batch_norm",
                "_batch_norm_with_update", "_batch_norm_no_update"}
 _BN_BACKWARD = {"native_batch_norm_backward", "cudnn_batch_norm_backward",
                 "miopen_batch_norm_backward", "batch_norm_backward"}
+# layer and group norm normalise by statistics of their own input, as a
+# batch norm in training does
+_NORM = {"native_layer_norm": 7, "native_group_norm": 7, "native_layer_norm_backward": 8,
+         "native_group_norm_backward": 8}
 _PER_OUTPUT = {"_softmax": 5, "_log_softmax": 5, "_softmax_backward_data": 4,
                "_log_softmax_backward_data": 4, "upsample_bilinear2d": 8,
                "upsample_bilinear2d_backward": 8}
@@ -115,6 +121,8 @@ def _op_flops(func, args, kwargs, out) -> tuple[str, int]:
         return "batch_norm", (7 if training else 4) * args[0].numel()
     if name in _BN_BACKWARD:
         return "batch_norm", 8 * args[0].numel()
+    if name in _NORM:
+        return "norm", _NORM[name] * args[0].numel()
     if name in _PER_OUTPUT:
         kind = "softmax" if "softmax" in name else "resample"
         return kind, _PER_OUTPUT[name] * _tensors(out)[0].numel()
@@ -206,11 +214,12 @@ def cost_analysis(fn: Callable, *args) -> dict[str, float]:
       ``adjoint_cost``s with every tap where ``fn`` differentiates it), the
       same whatever computes the pass (``ops/warp_correlate.counted_pass``);
       plus, per element: batch norm 4 (7 with batch statistics) and its
-      backward 8; softmax 5 and its backward 4; bilinear upsampling 8;
-      reductions 1 per input element (variances 3); an accumulating
-      scatter 1 per value; every other pointwise op 1 per output element
-      (comparisons and selections included, copies not).  Every other op
-      counts 0.
+      backward 8; layer and group norm 7 and their backward 8 (as the
+      benchmark's frozen count, ``mvsbench/counts/cost.py``); softmax 5
+      and its backward 4; bilinear upsampling 8; reductions 1 per input
+      element (variances 3); an accumulating scatter 1 per value; every
+      other pointwise op 1 per output element (comparisons and selections
+      included, copies not).  Every other op counts 0.
     * Bytes: for every aten op outside the passes, except views, aliases
       and allocations, the bytes of its tensor arguments (read) and of its
       outputs (written), each at its logical size; an op that only writes
@@ -337,7 +346,23 @@ def breakdown(run: Callable[[], Any], reps: int = 3) -> tuple[dict[str, float], 
 def _options(args) -> dict:
     """The model options of the command line, as Config fields."""
     return dict(compute_dtype=args.compute_dtype, costreg_dtype=args.costreg_dtype,
-                feature_dtype=args.feature_dtype, agg_mode=args.agg_mode)
+                feature_dtype=args.feature_dtype, architecture=args.architecture,
+                agg_mode=args.agg_mode or ("pixelwise" if args.architecture == "transmvsnet"
+                                           else "variance"))
+
+
+def _reset_stats() -> None:
+    blocks.reset_conv_selections()
+    blocks.reset_fold_stats()
+    wc.reset_adaptive_stats()
+    transmvsnet.reset_fmt_stats()
+    deform_conv.reset_stats()
+
+
+def _stats() -> dict:
+    return dict(conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
+                adaptive_stats=wc.adaptive_stats(), fmt_stats=transmvsnet.fmt_stats(),
+                deform_stats=deform_conv.stats())
 
 
 def main_train(args, device) -> None:
@@ -349,9 +374,7 @@ def main_train(args, device) -> None:
                                              cfg.milestones, cfg.lr_decay, cfg.epochs), cfg.wd)
     batch = _batch(cfg, cfg.batch_size, cfg.nviews, *cfg.img_size, device)
     step = make_train_step(tuple(cfg.dlossw), cfg.depth_mode)
-    blocks.reset_conv_selections()
-    blocks.reset_fold_stats()
-    wc.reset_adaptive_stats()
+    _reset_stats()
     times, table = breakdown(lambda: step(model, optimizer, scheduler, batch))
     torch.cuda.reset_peak_memory_stats()
     step(model, optimizer, scheduler, batch)
@@ -359,10 +382,8 @@ def main_train(args, device) -> None:
     peak = torch.cuda.max_memory_allocated()
     print("train_breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=cfg.batch_size, remat=cfg.remat,
-        **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
-        conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
-        adaptive_stats=wc.adaptive_stats(), peak_mem_gb=peak / 1e9, ms=times)),
-        flush=True)
+        **_options(args), fold_level0=model.fold_level0, tf32=args.tf32, **_stats(),
+        peak_mem_gb=peak / 1e9, ms=times)), flush=True)
     print(table, flush=True)
 
 
@@ -374,7 +395,10 @@ def main(argv=None) -> None:
                    help="cost passes of the eval forward (epipolar: the model's routing)")
     for name in ("compute_dtype", "costreg_dtype", "feature_dtype"):
         p.add_argument(f"--{name}", default="auto", choices=["auto", "float32", "bfloat16"])
-    p.add_argument("--agg_mode", default="variance", choices=["variance", "adaptive"])
+    p.add_argument("--agg_mode", default=None, choices=["variance", "adaptive"],
+                   help="DMVSNet's view aggregation (default variance)")
+    p.add_argument("--architecture", default="dmvsnet", choices=["dmvsnet", "transmvsnet"],
+                   help="eval only: transmvsnet weights views pixel by pixel")
     p.add_argument("--remat", action="store_true", help="with --train: rematerialise")
     p.add_argument("--fold", action="store_true",
                    help="run the folded level-0 plan (fold_level0=True)")
@@ -389,26 +413,23 @@ def main(argv=None) -> None:
     cfg = preset("dtu_test", filter_method="none", eval_batch=args.batch,
                  warp_impl=args.warp_impl, **_options(args))
     model = build_train_model(cfg, device).eval()
-    model.fold_level0 = True if args.fold else None
+    if args.fold:
+        model.fold_level0 = True
     inputs = synthetic_inputs(cfg, args.batch, device)
     infer = make_infer_step()
 
     def forward():
         infer(model, *inputs)
 
-    blocks.reset_conv_selections()
-    blocks.reset_fold_stats()
-    wc.reset_adaptive_stats()
+    _reset_stats()
     times, table = breakdown(forward)
     torch.cuda.reset_peak_memory_stats()
     forward()
     peak = torch.cuda.max_memory_allocated()
     print("breakdown " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), batch=args.batch, warp_impl=model.warp_impl,
-        **_options(args), fold_level0=model.fold_level0, tf32=args.tf32,
-        conv_selections=blocks.conv_selections(), fold_stats=blocks.fold_stats(),
-        adaptive_stats=wc.adaptive_stats(), peak_mem_gb=peak / 1e9,
-        ms_per_map=times["mvsnet.forward"] / args.batch,
+        **_options(args), fold_level0=getattr(model, "fold_level0", None), tf32=args.tf32,
+        **_stats(), peak_mem_gb=peak / 1e9, ms_per_map=times["mvsnet.forward"] / args.batch,
         ms=times)), flush=True)
     print(table, flush=True)
 

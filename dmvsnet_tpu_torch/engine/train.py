@@ -36,6 +36,7 @@ from dmvsnet_tpu_torch.engine.state import make_lr_schedule, make_optimizer
 from dmvsnet_tpu_torch.engine.steps import make_eval_step, make_train_step
 from dmvsnet_tpu_torch.models import MVSNet
 from dmvsnet_tpu_torch.models.blocks import init_weights
+from dmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
 from dmvsnet_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     make_mesh,
@@ -88,12 +89,17 @@ def resolve_dtypes(cfg: Config) -> dict[str, torch.dtype | None]:
                 costreg_dtype=net[cfg.costreg_dtype], feature_dtype=net[cfg.feature_dtype])
 
 
-def build_model(cfg: Config, device: torch.device, mesh=None) -> MVSNet:
-    """The MVSNet of ``cfg`` on ``device`` with a seeded random init from
-    ``cfg.seed`` (the same seed gives the same weights on every device), in
-    train mode, on ``mesh`` (a ``parallel.Mesh``) if given, with ``cfg``'s
-    aggregation, dtypes (``resolve_dtypes``) and remat.  Raises for what
-    the port does not run."""
+def build_model(cfg: Config, device: torch.device, mesh=None) -> torch.nn.Module:
+    """The network of ``cfg.architecture`` on ``device`` with a seeded random
+    init from ``cfg.seed`` (the same seed gives the same weights on every
+    device), in train mode: ``"dmvsnet"``, ``MVSNet`` on ``mesh`` (a
+    ``parallel.Mesh``) if given, with ``cfg``'s aggregation, dtypes
+    (``resolve_dtypes``) and remat; ``"transmvsnet"``, ``TransMVSNet``
+    (``agg_mode="pixelwise"``; no mesh, no remat) with ``cfg``'s dtypes.
+    Raises for what the port does not run."""
+    if cfg.architecture not in ("dmvsnet", "transmvsnet"):
+        raise ValueError(f"architecture must be 'dmvsnet' or 'transmvsnet', got "
+                         f"{cfg.architecture!r}")
     if cfg.fea_mode != "fpn":
         raise NotImplementedError(f"fea_mode={cfg.fea_mode!r}: only 'fpn' is implemented")
     # "auto" never means the epipolar sweep: it is an approximation, taken
@@ -109,10 +115,21 @@ def build_model(cfg: Config, device: torch.device, mesh=None) -> MVSNet:
     # build without allocating, then fill every tensor from one seeded
     # CPU generator: the same seed gives the same weights on every device
     with torch.device("meta"):
-        model = MVSNet(ndepths=tuple(cfg.ndepths),
-                       depth_interval_ratio=tuple(cfg.interval_ratio),
-                       inverse_depth=cfg.inverse_depth, warp_impl=impl, mesh=mesh,
-                       agg_mode=cfg.agg_mode, remat=cfg.remat, **resolve_dtypes(cfg))
+        if cfg.architecture == "transmvsnet":
+            if cfg.agg_mode != "pixelwise":
+                raise ValueError(f"architecture='transmvsnet' weights views pixel by pixel: "
+                                 f"agg_mode must be 'pixelwise', got {cfg.agg_mode!r}")
+            if mesh is not None or cfg.remat:
+                raise ValueError("architecture='transmvsnet' runs on one process without "
+                                 "remat")
+            model = TransMVSNet(ndepths=tuple(cfg.ndepths),
+                                depth_interval_ratio=tuple(cfg.interval_ratio), warp_impl=impl,
+                                **resolve_dtypes(cfg))
+        else:
+            model = MVSNet(ndepths=tuple(cfg.ndepths),
+                           depth_interval_ratio=tuple(cfg.interval_ratio),
+                           inverse_depth=cfg.inverse_depth, warp_impl=impl, mesh=mesh,
+                           agg_mode=cfg.agg_mode, remat=cfg.remat, **resolve_dtypes(cfg))
     model = model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(device).train()
@@ -145,6 +162,9 @@ def _spanned_fetches(loader):
 
 class Trainer:
     def __init__(self, cfg: Config, device: str | torch.device | None = None):
+        if cfg.architecture != "dmvsnet":
+            raise NotImplementedError(f"architecture={cfg.architecture!r}: the port trains "
+                                      "DMVSNet only (TransMVSNet runs inference)")
         self.cfg = cfg
         self.device = resolve_device(device)
         # cuDNN defaults fp32 convolutions to TF32; the port is held to the

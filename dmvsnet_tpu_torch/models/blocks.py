@@ -560,16 +560,20 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded initialisation of every conv and batch norm in ``model``.
+    """Seeded initialisation of every conv, linear layer, batch norm and
+    layer norm in ``model``.
 
-    Convs: U(+-1/sqrt(fan_in)) for weights and biases, PyTorch's default
-    conv init (fan_in = weight.shape[1] * prod(kernel)).  Batch norm:
-    weight 1, bias 0, running mean 0, running var 1.  The numbers come
-    from ``generator`` alone, on the CPU, so a seed gives the same weights
-    on every device.
+    Convs (1-D to 3-D, transposed, and modules that sub-class them) and
+    linear layers: U(+-1/sqrt(fan_in)) for weights and biases, PyTorch's
+    default init (fan_in = weight.shape[1] * prod(kernel); for a linear
+    layer its input width).  Batch norm (1-D to 3-D): weight 1, bias 0,
+    running mean 0, running var 1.  Layer norm: weight 1, bias 0.  The
+    numbers come from ``generator`` alone, on the CPU, so a seed gives the
+    same weights on every device.
     """
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                          nn.ConvTranspose3d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight.shape[1] * math.prod(m.weight.shape[2:]))
             for p in (m.weight, m.bias):
                 if p is not None:
@@ -581,4 +585,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.running_mean.fill_(0.0)
             m.running_var.fill_(1.0)
             m.num_batches_tracked.fill_(0)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
     return model

@@ -55,12 +55,16 @@ class _Branch(nn.Module):
         conv0 = folded.conv_block(self.conv0, folded.fold3d(x), d)       # folded
         y = self._middle(self.conv2(folded.conv_block(self.conv1, conv0, d)))
         y = conv0 + folded.deconv_block(self.conv11, y, d // 2)           # folded
-        return folded.unfold3d(folded.plain_conv(self.prob, y, d), d, 2)
+        return folded.unfold3d(folded.plain_conv(self.prob, y, d), d, self.prob.out_channels)
 
 
 class CostRegNetPart(_Branch):
+    """A 3-D U-Net branch with an ``out_channels``-wide head (2 in DMVSNet's
+    dual U-Nets; 1 in, 1 out as TransMVSNet's, CasMVSNet's ``CostRegNet``)."""
+
     def __init__(self, in_channels: int = 2, base_channels: int = 8,
-                 dtype: torch.dtype = torch.float32, fold_level0: bool = False):
+                 dtype: torch.dtype = torch.float32, fold_level0: bool = False,
+                 out_channels: int = 2):
         super().__init__()
         self.fold_level0 = fold_level0
         b = base_channels
@@ -74,7 +78,7 @@ class CostRegNetPart(_Branch):
         self.conv7 = DeconvBlock(b * 8, b * 4, dims=3, dtype=dtype)
         self.conv9 = DeconvBlock(b * 4, b * 2, dims=3, dtype=dtype)
         self.conv11 = DeconvBlock(b * 2, b, dims=3, dtype=dtype)
-        self.prob = PlainConv(b, 2, kernel=3, dims=3, dtype=dtype)
+        self.prob = PlainConv(b, out_channels, kernel=3, dims=3, dtype=dtype)
 
     def _middle(self, conv2: torch.Tensor) -> torch.Tensor:
         conv4 = self.conv4(self.conv3(conv2))

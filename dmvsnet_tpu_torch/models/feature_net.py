@@ -15,6 +15,10 @@ even H and W, and no cost count running (``folded.level0``, which asks
 nearest 2x upsample of the half-resolution map is its tiling over the four
 fold phases.  The blocks run through ``blocks._Block`` in either plan,
 which owns the norm and its fold into the convolution.
+
+The encoder and the top-down path are ``FPN``'s, which takes its three
+output heads as modules; ``FeatureNet`` gives it DMVSNet's plain heads, and
+``models/transmvsnet.ARFFeatureNet`` TransMVSNet's deformable ones.
 """
 
 from __future__ import annotations
@@ -26,11 +30,16 @@ from dmvsnet_tpu_torch.models import folded
 from dmvsnet_tpu_torch.models.blocks import ConvBlock, PlainConv, upsample_nearest_2x
 
 
-class FeatureNet(nn.Module):
-    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32,
-                 fold_level0: bool = False):
+class FPN(nn.Module):
+    """The 3-scale encoder and the top-down path around three output heads
+    (``out1`` at 1/4, ``out2`` at 1/2, ``out3`` at full resolution, each
+    taking the 32-wide FPN map for base 8).  The modules are registered
+    in the order conv0, conv1, conv2, out1, inner1, out2, inner2, out3, so
+    the state dict keeps one order whatever the heads."""
+
+    def __init__(self, heads: tuple[nn.Module, nn.Module, nn.Module], base_channels: int = 8,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fold_level0 = fold_level0
         c = base_channels
 
         def conv(cin, cout, k, s):
@@ -41,20 +50,11 @@ class FeatureNet(nn.Module):
                                    conv(c * 2, c * 2, 3, 1))
         self.conv2 = nn.Sequential(conv(c * 2, c * 4, 5, 2), conv(c * 4, c * 4, 3, 1),
                                    conv(c * 4, c * 4, 3, 1))
-        self.out1 = PlainConv(c * 4, c * 8, kernel=1, dtype=dtype)
+        self.out1 = heads[0]
         self.inner1 = PlainConv(c * 2, c * 4, kernel=1, use_bias=True, dtype=dtype)
-        self.out2 = PlainConv(c * 4, c * 4, kernel=3, dtype=dtype)
+        self.out2 = heads[1]
         self.inner2 = PlainConv(c, c * 4, kernel=1, use_bias=True, dtype=dtype)
-        self.out3 = PlainConv(c * 4, c * 2, kernel=3, dtype=dtype)
-
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
-        """x: (N, 3, H, W) -> {stage1..3, stage1_c..3_c}, each (N, C, h, w)."""
-        even = x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0
-        heads = (self._folded if folded.level0(self, x.shape, even) else self._unfolded)(x)
-        outputs = {}
-        for s, out in enumerate(heads):
-            outputs[f"stage{s + 1}"], outputs[f"stage{s + 1}_c"] = out.chunk(2, dim=1)
-        return outputs
+        self.out3 = heads[2]
 
     def _lower(self, conv1: torch.Tensor):
         """(out1, out2, the 1/2-resolution FPN map) from the 1/2-resolution
@@ -70,6 +70,25 @@ class FeatureNet(nn.Module):
         out1, out2, intra = self._lower(self.conv1(conv0))
         intra = upsample_nearest_2x(intra) + self.inner2(conv0)
         return out1, out2, self.out3(intra)
+
+
+class FeatureNet(FPN):
+    def __init__(self, base_channels: int = 8, dtype: torch.dtype = torch.float32,
+                 fold_level0: bool = False):
+        c = base_channels
+        super().__init__((PlainConv(c * 4, c * 8, kernel=1, dtype=dtype),
+                          PlainConv(c * 4, c * 4, kernel=3, dtype=dtype),
+                          PlainConv(c * 4, c * 2, kernel=3, dtype=dtype)), c, dtype)
+        self.fold_level0 = fold_level0
+
+    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+        """x: (N, 3, H, W) -> {stage1..3, stage1_c..3_c}, each (N, C, h, w)."""
+        even = x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0
+        heads = (self._folded if folded.level0(self, x.shape, even) else self._unfolded)(x)
+        outputs = {}
+        for s, out in enumerate(heads):
+            outputs[f"stage{s + 1}"], outputs[f"stage{s + 1}_c"] = out.chunk(2, dim=1)
+        return outputs
 
     def _folded(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         conv0 = folded.conv_block(self.conv0[1], folded.conv_block(self.conv0[0], folded.fold2d(x)))

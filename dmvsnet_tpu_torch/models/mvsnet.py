@@ -134,6 +134,24 @@ _HEAD_H_AXIS = {"prob_volume": 2, "depth_sub_plus": 1, "depth_values_c": 2,
                 "depth_sub_plus_refine": 1}
 
 
+def check_shapes(h: int, w: int, ndepths: Sequence[int]) -> None:
+    """Refuses an image size or a plane count that the cascade's 3-level
+    stride-2 cost U-Nets cannot take."""
+    scale0 = 2 ** (len(ndepths) - 1)
+    if h % (scale0 * 8) or w % (scale0 * 8):
+        raise ValueError(
+            f"image size ({h}x{w}) must be divisible by {scale0 * 8}: the "
+            "coarsest stage runs at 1/4 resolution through a 3-level "
+            "stride-2 cost U-Net"
+        )
+    for nd in ndepths:
+        if nd % 8:
+            raise ValueError(
+                f"each ndepths entry must be divisible by 8 (got {tuple(ndepths)}): "
+                "the cost U-Net halves the plane axis three times"
+            )
+
+
 class MVSNet(nn.Module):
     def __init__(
         self,
@@ -218,19 +236,7 @@ class MVSNet(nn.Module):
     def _forward(self, imgs, proj_matrices, depth_values) -> dict[str, Any]:
         num_stage = len(self.ndepths)
         b, v, h, w, _ = imgs.shape
-        scale0 = 2 ** (num_stage - 1)
-        if h % (scale0 * 8) or w % (scale0 * 8):
-            raise ValueError(
-                f"image size ({h}x{w}) must be divisible by {scale0 * 8}: the "
-                "coarsest stage runs at 1/4 resolution through a 3-level "
-                "stride-2 cost U-Net"
-            )
-        for nd in self.ndepths:
-            if nd % 8:
-                raise ValueError(
-                    f"each ndepths entry must be divisible by 8 (got {self.ndepths}): "
-                    "the cost U-Net halves the plane axis three times"
-                )
+        check_shapes(h, w, self.ndepths)
         depth_values = depth_values.float()
         # NOTE: divided by D0, not D0-1 (as the reference does)
         depth_interval = (depth_values[0, -1] - depth_values[0, 0]) / depth_values.shape[1]

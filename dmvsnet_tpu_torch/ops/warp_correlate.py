@@ -43,9 +43,9 @@ pair), and the aten ops inside it are not counted on top.  The gated pass
 does not: the model takes it only while no counter is active.
 
 The kernels are fp32 end to end.  The cost-pass entries
-(``aggregate_cost_volume``, its view-sharded and adaptive forms) upcast
-bf16 features to fp32 before the kernel, as the JAX package's Pallas
-entries do (``dmvsnet_tpu/ops/pallas/warp_correlate.py``,
+(``aggregate_cost_volume``, its view-sharded, adaptive and pixel-wise
+forms) upcast bf16 features to fp32 before the kernel, as the JAX
+package's Pallas entries do (``dmvsnet_tpu/ops/pallas/warp_correlate.py``,
 ``aggregate_cost_volume_pallas``): the cost volume is fp32, and autograd
 returns the feature gradient through the upcast in the caller's dtype.
 """
@@ -502,16 +502,55 @@ def aggregate_cost_volume_adaptive(
     return adaptive_pairs(*pass_inputs(feats, proj2, depth_values), gate_fn, impl)
 
 
+def pair_passes(feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor,
+                impl: str = "cuda"):
+    """The one per-pair loop of the cost passes: on a pass's inputs
+    (``pass_inputs``), yields in view order each (reference, source v)
+    pair's (B, D, H, W, 2) fp32 correlation, one counted pass at V = 2
+    (``counted_pass``; kernel 1, or its plain version for ``impl="torch"``
+    and CPU tensors)."""
+    fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
+    for i in range(1, feats.shape[1]):
+        yield counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), depth)
+
+
 def adaptive_pairs(feats: torch.Tensor, rel: torch.Tensor, depth: torch.Tensor, gate_fn,
                    impl: str = "cuda") -> torch.Tensor:
-    """The per-pair loop of ``aggregate_cost_volume_adaptive`` on a pass's
-    inputs (``pass_inputs``)."""
-    fn = {"cuda": warp_correlate, "torch": warp_correlate_plain}[impl]
+    """The per-pair route of ``aggregate_cost_volume_adaptive`` on a pass's
+    inputs (``pass_inputs``): each pair gated by ``gate_fn``, summed in view
+    order."""
     total = None
-    for i in range(1, feats.shape[1]):
-        corr = gate_fn(counted_pass(fn, feats[:, [0, i]], rel[:, i - 1:i].contiguous(), depth))
+    for corr in pair_passes(feats, rel, depth, impl):
+        corr = gate_fn(corr)
         total = corr if total is None else total + corr
     return total
+
+
+def aggregate_cost_volume_pixelwise(
+    feats: torch.Tensor, proj2: torch.Tensor, depth_values: torch.Tensor, weight_fn,
+    impl: str = "cuda",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """TransMVSNet's cost pass (``models/transmvsnet``): per source view i,
+    its pair's one-group similarity S_i, the mean of the pair's two group
+    correlations (the mean over channels of warped * reference), weighted
+    per pixel by ``weight_fn(i, S_i)``, a (B, H, W) weight w_i.
+
+    Args: as ``aggregate_cost_volume``, plus ``weight_fn``.
+
+    Returns:
+      ((B, D, H, W) fp32 sum_i w_i S_i / (sum_i w_i + 1e-5), summed in view
+      order; the (B, V-1, H, W) weights).
+    """
+    total = weight_sum = None
+    weights = []
+    for i, corr in enumerate(pair_passes(*pass_inputs(feats, proj2, depth_values), impl)):
+        sim = corr.mean(-1)
+        w = weight_fn(i, sim)
+        weighted = sim * w[:, None]
+        total = weighted if total is None else total + weighted
+        weight_sum = w if weight_sum is None else weight_sum + w
+        weights.append(w)
+    return total / (weight_sum + 1e-5)[:, None], torch.stack(weights, 1)
 
 
 def aggregate_cost_volume_gated(

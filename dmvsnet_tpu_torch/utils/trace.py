@@ -20,12 +20,27 @@ The spans (PERF.md §3 lists them with what reads each):
   a pass (``models/mvsnet.MVSNet._gate``).  Under
   remat the recomputed feature net, cost passes and cost U-Nets open their
   spans again inside the backward;
+* ``models/transmvsnet.TransMVSNet.forward``: ``mvsnet.forward``;
+  ``mvsnet.feature``, holding ``mvsnet.arf.s{k}`` around each of the three
+  ARF heads (k = 1..3); ``mvsnet.fmt`` (the position encoding, the eight
+  transformer layers and the pathway); per stage k ``mvsnet.s{k}.sample``,
+  ``mvsnet.s{k}.main.cost`` (the pair passes and the weighted view sum;
+  at stage 1 it holds one ``mvsnet.s1.main.view_weight`` per source view,
+  the pixel-wise view-weight net), ``mvsnet.s{k}.main.costreg`` and
+  ``mvsnet.s{k}.main.head``.  No name ends in ``.gate``;
 * ``engine/steps`` train step: ``train.step`` around ``train.forward``,
   ``train.loss``, ``train.backward``, ``train.metrics`` and
   ``train.optimizer``;
 * ``parallel/mesh.shard_batch``: ``train.h2d``;
 * ``engine/train.Trainer.train``: ``train.load``, each fetch of a batch
   from the loader.
+
+Counters beside the spans, printed on ``engine/profiler``'s ``breakdown``
+lines: ``models/transmvsnet.fmt_stats()`` (the transformer's layer calls
+by kind, self and cross, and the query tokens they took) and
+``ops/deform_conv.stats()`` (deformable convolutions and their sampled
+taps), besides ``ops/warp_correlate.adaptive_stats()`` and
+``models/blocks.fold_stats()``.
 """
 
 from __future__ import annotations
